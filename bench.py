@@ -1,7 +1,7 @@
 """End-to-end demux throughput benchmark (one JSON line on stdout).
 
-Measures the full per-minibatch path on the default backend (the real TPU
-chip under the driver) for the production predictions-only run: the
+Measures the full per-minibatch path on the default backend for the
+production predictions-only run: the
 TWO-STAGE wire feed (pipeline/step.py make_twostage_decision_step) ships
 each read's first 7168 samples (VBZ inner layout), decodes + decides on
 device, fetches the per-read resolved bits, and ships tail bytes only for

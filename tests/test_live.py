@@ -260,3 +260,46 @@ def test_negative_missed_obs_trims_leading_samples():
     )
     session._handle_chunk(2, flush)
     assert session.skip_stats["too_long_reads"] == 1
+
+
+@pytest.mark.parametrize("max_batch", [4, 8])
+def test_fingerprint_lane_reuses_bucket_program_at_any_fill(
+    max_batch, tmp_path, caplog
+):
+    """A micro-batch filled to n reads runs the program its length bucket
+    compiled for a one-read batch (what warmup() runs): cutting the padded
+    outputs to n happens on the host, so no compile lands inside the
+    decision-latency window."""
+    import logging
+
+    import jax
+
+    from warpdemux_tpu.models.registry import load_model
+
+    model = load_model("WDX4_rna004_v1_0")
+    cfg = SessionConfig(
+        model_name="WDX4_rna004_v1_0",
+        save_path=str(tmp_path),
+        run_id="fill",
+        max_batch=max_batch,
+    )
+    balancers = BarcodeBalancers.from_configs(
+        4, [BalancerConfig(balance_type="none")], [1.0], n_channels=4
+    )
+    session = Session(DummyClient(n_reads=1), cfg, balancers, model=model)
+    rng = np.random.default_rng(11)
+
+    def signals(n):
+        return [rng.normal(80, 10, 1500 + 50 * i).astype(np.float32)
+                for i in range(n)]
+
+    session._fingerprint_batch(signals(1))
+    caplog.clear()
+    with jax.log_compiles(), caplog.at_level(logging.DEBUG):
+        for n in range(2, max_batch + 1):
+            fpts, ok = session._fingerprint_batch(signals(n))
+            assert fpts.shape == (n, model.fingerprint_len)
+            assert ok.shape == (n,)
+    compiles = [r.getMessage() for r in caplog.records
+                if "Compiling" in r.getMessage()]
+    assert not compiles, compiles[:3]

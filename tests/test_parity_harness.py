@@ -80,8 +80,8 @@ def test_diff_runs_disagreement(tmp_path):
     assert rep["n_compared"] == 2
     assert rep["barcode_agreement"] == 0.5
     assert rep["barcode_disagreements"] == [
-        {"read_id": "r1", "ref": 3, "tpu": 5, "ref_conf": 0.9,
-         "tpu_conf": 0.87}
+        {"read_id": "r1", "ref": 3, "ours": 5, "ref_conf": 0.9,
+         "ours_conf": 0.87}
     ]
     assert rep["pass_only_in_ref"] == ["r5"]
     assert rep["fail_reason_crosstab"] == {

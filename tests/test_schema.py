@@ -91,7 +91,7 @@ def test_summary_frame_has_per_method_columns():
         "llr_polya_end", "llr_fail_reason", "mvs_med_shift",
         "mvs_min_polya_var",
     ]:
-        assert col in df.columns, col
+        assert col in df, col
     # llr IS the primary: per-method results equal the final boundaries
     np.testing.assert_array_equal(df["llr_polya_start"], df["polya_start"])
     # mvs values are real measurements on these boundaries

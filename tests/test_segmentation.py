@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 import jax.numpy as jnp
 from scipy.signal import find_peaks
 
@@ -128,21 +129,24 @@ def test_segment_signal_batch_fails_on_flat_signal():
     assert not bool(ok[0]) and not bool(ok[1])
 
 
-def test_ttest_pallas_matches_jnp():
-    """The Pallas windowed-t-test kernel (interpret mode) runs the same
-    element DAG as the jnp path; XLA's context-dependent algebraic
-    rewrites (x/sqrt -> x*rsqrt) leave ~1 ulp of slack, no more."""
+@pytest.mark.parametrize("w", [4, 7, 12])
+def test_windowed_t_test_matches_native_scores(w):
+    """float64 batch t-test scores equal the reference C kernel's sliding
+    scores (native/wdx_native.cpp) at every window width."""
     import jax.numpy as jnp
+    from warpdemux_tpu import native
     from warpdemux_tpu.ops.segmentation import windowed_t_test
-    from warpdemux_tpu.ops.ttest_pallas import windowed_t_test_pallas
 
-    rng = np.random.default_rng(23)
-    B, L, w_max = 9, 2048, 12
-    x = jnp.asarray(rng.normal(70, 12, (B, L)), jnp.float32)
-    n = jnp.asarray(rng.integers(100, L + 1, B), jnp.int32)
-    w = jnp.asarray(rng.integers(1, w_max + 1, B), jnp.int32)
-    want, n_want = windowed_t_test(x, n, w, w_max)
-    got = windowed_t_test_pallas(x, n, w, w_max, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=3e-7, atol=1e-30
+    rng = np.random.default_rng(23 + w)
+    B, L, w_max = 4, 700, 12
+    x = rng.normal(70, 12, (B, L))
+    n = np.array([L, 650, 300, 2 * w + 1], np.int32)
+    got, n_got = windowed_t_test(
+        jnp.asarray(x), jnp.asarray(n), jnp.full(B, w, jnp.int32), w_max
     )
+    got = np.asarray(got)
+    for b in range(B):
+        want = native.windowed_t_test(x[b, : n[b]], w)
+        assert int(n_got[b]) == want.size
+        np.testing.assert_allclose(got[b, : want.size], want, rtol=1e-7)
+        assert not got[b, want.size :].any()

@@ -3,7 +3,6 @@
 target_accuracy_thresholds/WDX4_rna004__3_4_5_7@v0.4.4.csv)."""
 
 import numpy as np
-import pandas as pd
 import pytest
 
 from warpdemux_tpu.models import target_accuracy as ta
@@ -11,15 +10,15 @@ from warpdemux_tpu.models import target_accuracy as ta
 
 def test_calibration_loads_and_matches_reference_values():
     cal = ta.load_calibration("WDX4_rna004__3_4_5_7@v0.4.4")
-    assert list(cal.index) == [3, 4, 5, 7]
-    assert 99.0 in cal.columns and 99.9 in cal.columns
-    assert cal.loc[3, 99.0] == 0.17
-    assert cal.loc[7, 99.9] == 0.99
+    assert cal.barcodes == [3, 4, 5, 7]
+    assert 99.0 in cal.targets and 99.9 in cal.targets
+    assert cal.threshold(3, 99.0) == 0.17
+    assert cal.threshold(7, 99.9) == 0.99
 
 
 def test_calibration_for_model_prefix_match():
     cal = ta.calibration_for_model("WDX4_rna004_v1_0")
-    assert list(cal.index) == [3, 4, 5, 7]
+    assert cal.barcodes == [3, 4, 5, 7]
     with pytest.raises(FileNotFoundError):
         ta.calibration_for_model("WDX99_nope_v1_0")
 
@@ -39,13 +38,11 @@ def test_apply_target_performance():
 
 
 def test_filter_predictions_df():
-    df = pd.DataFrame(
-        {
-            "#read_id": ["a", "b"],
-            "predicted_barcode": [7, 7],
-            "confidence_score": [0.99, 0.5],
-        }
-    )
+    df = {
+        "#read_id": ["a", "b"],
+        "predicted_barcode": [7, 7],
+        "confidence_score": [0.99, 0.5],
+    }
     out = ta.filter_predictions_df(df, "WDX4_rna004_v1_0", 99.9)
     assert list(out["predicted_barcode"]) == [7, -1]
 

@@ -5,8 +5,8 @@ largest shipped model — 2601 reference fingerprints, 11-class Wu-Lin
 coupling — and the reference grew block-parallel DTW machinery
 specifically for models this size
 (/root/reference/warpdemux/parallel_distances.py:139-198). These tests
-pin that (a) the Pallas DTW kernel at the full 2601-wide lattice matches
-the jnp wavefront bit-for-bit semantics, and (b) the full fused WDX10
+pin that (a) the fused DTW kernel at every shipped reference width up to
+2601 matches the jnp wavefront bit for bit, and (b) the full fused WDX10
 step compiles and recovers planted barcodes.
 """
 
@@ -24,23 +24,31 @@ def wdx10():
     return load_model("WDX10_rna004_v1_0")
 
 
-def test_pallas_dtw_matches_jnp_at_wdx10_lattice(wdx10):
-    """The '1000x2601 in one kernel launch' claim, verified at the real
-    reference-set width: Pallas (interpret) == jnp wavefront on an
-    8 x 2601 lattice against WDX10's actual support vectors."""
+@pytest.mark.parametrize(
+    "model_name,n_ref",
+    [
+        ("WDX4_rna004_v1_0", 851),
+        ("WDX6_rna004_v1_0", 1368),
+        ("WDX10_rna004_v1_0", 2601),
+    ],
+)
+def test_pallas_dtw_matches_jnp_at_wdx10_lattice(model_name, n_ref):
+    """The fused DTW kernel (interpret mode) equals the jnp wavefront
+    bit for bit against each shipped reference-set width, up to WDX10's
+    2601 support vectors, with a ragged query count."""
     from warpdemux_tpu.ops.dtw import dtw_distance_matrix
-    from warpdemux_tpu.ops.dtw_pallas import dtw_distance_matrix_pallas
+    from warpdemux_tpu.ops.dtw_triton import dtw_distance_matrix_triton
 
-    Y = np.asarray(wdx10.X_sv, np.float32)
-    assert Y.shape == (2601, 25)
+    Y = np.asarray(load_model(model_name).X_sv, np.float32)
+    assert Y.shape == (n_ref, 25)
     rng = np.random.default_rng(0)
-    X = rng.normal(0, 1, (8, 25)).astype(np.float32)
+    X = rng.normal(0, 1, (9, 25)).astype(np.float32)
 
     want = np.asarray(dtw_distance_matrix(X, Y, 15, 0.1))
     got = np.asarray(
-        dtw_distance_matrix_pallas(X, Y, 15, 0.1, interpret=True)
+        dtw_distance_matrix_triton(X, Y, 15, 0.1, interpret=True)
     )
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_wdx10_step_compiles_and_recovers_planted(wdx10):

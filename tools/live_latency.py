@@ -24,24 +24,11 @@ enable_compilation_cache()
 import numpy as np
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--reads", type=int, default=400)
-    ap.add_argument("--save", default="/tmp/wdx_live_latency")
-    ap.add_argument("--max-batch", type=int, default=16)
-    ap.add_argument("--batch-wait", type=float, default=0.005)
-    ap.add_argument(
-        "--channels", type=int, default=126,
-        help="active channel count (reduce to fit slow-dispatch tunnels)",
-    )
-    ap.add_argument(
-        "--assert-budget", action="store_true",
-        help="exit nonzero unless p99 total latency < one chunk period",
-    )
-    args = ap.parse_args()
+BUDGET_S = 0.100  # one MinKNOW chunk period
 
-    import jax
 
+def measure(reads, channels, max_batch, batch_wait, save):
+    """Run the paced dummy session; returns (per-stage percentiles, wall s)."""
     from warpdemux_tpu.live.balancer import BalancerConfig, BarcodeBalancers
     from warpdemux_tpu.live.dummy import DummyClient, synth_barcoded_read
     from warpdemux_tpu.live.session import Session, SessionConfig
@@ -55,18 +42,18 @@ def main():
         for _ in range(48)
     ]
     client = DummyClient(
-        n_reads=args.reads, chunk_size=1500, seed=7, signals=signals,
-        n_channels=args.channels,
+        n_reads=reads, chunk_size=1500, seed=7, signals=signals,
+        n_channels=channels,
         chunk_period_s=0.1,  # MinKNOW 100 ms chunk cadence
         stagger_s=4.0,  # molecules enter pores at random times
     )
     cfg = SessionConfig(
         model_name="WDX4_rna004_v1_0",
-        save_path=args.save,
+        save_path=save,
         run_id="latency",
         check_real_range=False,
-        max_batch=args.max_batch,
-        batch_wait_s=args.batch_wait,
+        max_batch=max_batch,
+        batch_wait_s=batch_wait,
     )
     balancers = BarcodeBalancers.from_configs(
         4, [BalancerConfig(balance_type="read_count")], [1.0], n_channels=126
@@ -74,9 +61,28 @@ def main():
     session = Session(client, cfg, balancers, model=model)
     t0 = time.time()
     session.run(batch_size=64)
-    wall = time.time() - t0
+    return session.reporter.latency_percentiles(), time.time() - t0
 
-    pct = session.reporter.latency_percentiles()
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reads", type=int, default=400)
+    ap.add_argument("--save", default="traces/live_latency")
+    ap.add_argument("--max-batch", type=int, default=16)
+    ap.add_argument("--batch-wait", type=float, default=0.005)
+    ap.add_argument("--channels", type=int, default=126,
+                    help="active channel count")
+    ap.add_argument(
+        "--assert-budget", action="store_true",
+        help="exit nonzero unless p99 total latency < one chunk period",
+    )
+    args = ap.parse_args()
+
+    import jax
+
+    pct, wall = measure(
+        args.reads, args.channels, args.max_batch, args.batch_wait, args.save
+    )
     print(
         f"# backend={jax.default_backend()} reads={args.reads} "
         f"channels={args.channels} wall={wall:.1f}s"
@@ -90,8 +96,7 @@ def main():
         )
     tot = pct.get("total")
     if tot:
-        budget = 0.100
-        verdict = "PASS" if tot["p99"] < budget else "FAIL"
+        verdict = "PASS" if tot["p99"] < BUDGET_S else "FAIL"
         print(
             f"# p99 decision latency {tot['p99']*1e3:.1f} ms vs one 100 ms "
             f"chunk period: {verdict}"

@@ -68,32 +68,32 @@ def _find_run_dir(out_dir: str) -> str:
     )
 
 
-def diff_runs(ref_run_dir: str, tpu_run_dir: str) -> dict:
+def diff_runs(ref_run_dir: str, ours_run_dir: str) -> dict:
     """Diff two completed demux run dirs (reference layout: predictions/
     + failed_reads/ csv.gz shards). Returns the parity report dict."""
     ref_pred = _load_csvs(ref_run_dir, "predictions")
-    tpu_pred = _load_csvs(tpu_run_dir, "predictions")
+    ours_pred = _load_csvs(ours_run_dir, "predictions")
     ref_fail = _load_csvs(ref_run_dir, "failed_reads")
-    tpu_fail = _load_csvs(tpu_run_dir, "failed_reads")
+    ours_fail = _load_csvs(ours_run_dir, "failed_reads")
 
     rid = "#read_id" if "#read_id" in ref_pred.columns else "read_id"
-    tid = "#read_id" if "#read_id" in tpu_pred.columns else "read_id"
+    tid = "#read_id" if "#read_id" in ours_pred.columns else "read_id"
     report: dict = {
         "ref_predicted": len(ref_pred),
-        "tpu_predicted": len(tpu_pred),
+        "ours_predicted": len(ours_pred),
         "ref_failed": len(ref_fail),
-        "tpu_failed": len(tpu_fail),
+        "ours_failed": len(ours_fail),
     }
 
     ref_ids = set(ref_pred[rid]) if len(ref_pred) else set()
-    tpu_ids = set(tpu_pred[tid]) if len(tpu_pred) else set()
-    report["pass_only_in_ref"] = sorted(ref_ids - tpu_ids)
-    report["pass_only_in_tpu"] = sorted(tpu_ids - ref_ids)
+    ours_ids = set(ours_pred[tid]) if len(ours_pred) else set()
+    report["pass_only_in_ref"] = sorted(ref_ids - ours_ids)
+    report["pass_only_in_ours"] = sorted(ours_ids - ref_ids)
 
-    both = ref_ids & tpu_ids
+    both = ref_ids & ours_ids
     if both:
         r = ref_pred.set_index(rid).loc[sorted(both)]
-        t = tpu_pred.set_index(tid).loc[sorted(both)]
+        t = ours_pred.set_index(tid).loc[sorted(both)]
         bc_match = (
             r["predicted_barcode"].to_numpy().astype(int)
             == t["predicted_barcode"].to_numpy().astype(int)
@@ -104,9 +104,9 @@ def diff_runs(ref_run_dir: str, tpu_run_dir: str) -> dict:
             {
                 "read_id": i,
                 "ref": int(rv),
-                "tpu": int(tv),
+                "ours": int(tv),
                 "ref_conf": float(rc),
-                "tpu_conf": float(tc),
+                "ours_conf": float(tc),
             }
             for i, rv, tv, rc, tc in zip(
                 r.index[~bc_match],
@@ -137,14 +137,14 @@ def diff_runs(ref_run_dir: str, tpu_run_dir: str) -> dict:
         report["n_compared"] = 0
 
     # fail-reason cross-tab over reads failed in both
-    if len(ref_fail) and len(tpu_fail):
+    if len(ref_fail) and len(ours_fail):
         rfid = "#read_id" if "#read_id" in ref_fail.columns else "read_id"
-        tfid = "#read_id" if "#read_id" in tpu_fail.columns else "read_id"
+        tfid = "#read_id" if "#read_id" in ours_fail.columns else "read_id"
         rmap = dict(
             zip(ref_fail[rfid], ref_fail.get("fail_reason", ""))
         )
         tmap = dict(
-            zip(tpu_fail[tfid], tpu_fail.get("fail_reason", ""))
+            zip(ours_fail[tfid], ours_fail.get("fail_reason", ""))
         )
         cross: dict = {}
         for i in set(rmap) & set(tmap):
@@ -199,7 +199,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--diff-only",
         nargs=2,
-        metavar=("REF_RUN_DIR", "TPU_RUN_DIR"),
+        metavar=("REF_RUN_DIR", "OUR_RUN_DIR"),
         help="skip both runs; diff two existing run dirs",
     )
     args = ap.parse_args(argv)
@@ -227,9 +227,9 @@ def main(argv=None) -> int:
         ap.error("--pod5 is required unless --check-only/--diff-only")
 
     ref_out = os.path.join(args.workdir, "ref")
-    tpu_out = os.path.join(args.workdir, "tpu")
+    ours_out = os.path.join(args.workdir, "ours")
     os.makedirs(ref_out, exist_ok=True)
-    os.makedirs(tpu_out, exist_ok=True)
+    os.makedirs(ours_out, exist_ok=True)
 
     env = dict(os.environ, PYTHONPATH=args.reference_repo)
     subprocess.run(
@@ -260,7 +260,7 @@ def main(argv=None) -> int:
             "-i",
             *args.pod5,
             "-o",
-            tpu_out,
+            ours_out,
             "-m",
             args.model,
         ],
@@ -268,7 +268,7 @@ def main(argv=None) -> int:
         check=True,
     )
 
-    report = diff_runs(_find_run_dir(ref_out), _find_run_dir(tpu_out))
+    report = diff_runs(_find_run_dir(ref_out), _find_run_dir(ours_out))
     print(json.dumps(report, indent=2))
     agree = report.get("barcode_agreement")
     print(

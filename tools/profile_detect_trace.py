@@ -1,35 +1,32 @@
 """On-device op-level profile of the fused detect stage (VERDICT r2 item 1a).
 
 Runs the production detect_boundaries_with_fallback under jax.profiler.trace
-and prints the top XLA ops by total device time parsed from the perfetto
-trace — dispatch-latency-free evidence of where the detect milliseconds go.
+and prints the top XLA ops by total device time on the GPU's device planes
+(tools/trace_reduce.py).
 
 Usage: python tools/profile_detect_trace.py [B] [trace_dir]
 """
 
-import glob
-import gzip
-import json
 import sys
 import time
-from collections import defaultdict
 
 import numpy as np
 import jax
-import jax.numpy as jnp
 
 sys.path.insert(0, ".")
+sys.path.insert(0, "tools")
 
 from warpdemux_tpu.utils.jaxcache import enable_compilation_cache
 
 enable_compilation_cache()
 
 from bench import synth_minibatch
+from trace_reduce import device_times, print_table
 from warpdemux_tpu.config.utils import get_model_spc_config
 from warpdemux_tpu.detect.boundaries import detect_boundaries_with_fallback
 
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
-TRACE = sys.argv[2] if len(sys.argv) > 2 else "/tmp/wdx_detect_trace"
+TRACE = sys.argv[2] if len(sys.argv) > 2 else "traces/detect"
 L = 10000
 REPS = 6
 
@@ -64,44 +61,4 @@ with jax.profiler.trace(TRACE):
         out = fn(d_signals, d_lens)
     jax.block_until_ready(out)
 
-# parse the perfetto trace: sum device-lane slice durations by op name
-files = sorted(glob.glob(f"{TRACE}/**/*.trace.json.gz", recursive=True))
-if not files:
-    print("no trace written", file=sys.stderr)
-    sys.exit(1)
-with gzip.open(files[-1], "rt") as f:
-    trace = json.load(f)
-
-# find TPU device-op track pids (process names like "/device:TPU:0" or "TPU ... Chip")
-pid_name = {}
-tid_name = {}
-for ev in trace["traceEvents"]:
-    if ev.get("ph") == "M" and ev.get("name") == "process_name":
-        pid_name[ev["pid"]] = ev["args"].get("name", "")
-    if ev.get("ph") == "M" and ev.get("name") == "thread_name":
-        tid_name[(ev["pid"], ev["tid"])] = ev["args"].get("name", "")
-
-dev_pids = {p for p, n in pid_name.items() if "TPU" in n or "device" in n.lower()}
-tot = defaultdict(float)
-cnt = defaultdict(int)
-total = 0.0
-for ev in trace["traceEvents"]:
-    if ev.get("ph") != "X" or ev.get("pid") not in dev_pids:
-        continue
-    tname = tid_name.get((ev["pid"], ev["tid"]), "")
-    if "step" in tname.lower():
-        continue  # step lanes duplicate op lanes
-    dur = ev.get("dur", 0) / 1e3  # us -> ms
-    name = ev.get("name", "?")
-    tot[name] += dur
-    cnt[name] += 1
-    total += dur
-
-print(f"# device total: {total/REPS:.2f} ms/minibatch over {REPS} reps")
-print("| op | ms/minibatch | calls/mb | % |")
-print("|---|---|---|---|")
-for name, ms in sorted(tot.items(), key=lambda kv: -kv[1])[:40]:
-    print(
-        f"| {name[:70]} | {ms/REPS:8.3f} | {cnt[name]//REPS} |"
-        f" {100*ms/max(total,1e-9):5.1f} |"
-    )
+print_table(device_times(TRACE), REPS, top=40)

@@ -87,11 +87,7 @@ fpt = timeit(
     det.adapter_end,
 )
 
-use_pallas = jax.default_backend() == "tpu"
-if use_pallas:
-    from warpdemux_tpu.ops.dtw_pallas import dtw_distance_matrix_pallas as dtw_fn
-else:
-    from warpdemux_tpu.ops.dtw import dtw_distance_matrix as dtw_fn
+from warpdemux_tpu.ops.dtw_triton import dtw_distance_matrix_kernel as dtw_fn
 
 X_sv = model.X_sv
 dtw_j = jax.jit(

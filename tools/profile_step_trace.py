@@ -1,36 +1,35 @@
 """On-device op-level profile of the FULL fused demux step.
 
 Traces make_demux_step (adc feed, device-resident inputs) with
-jax.profiler and prints the top XLA/Pallas ops by device time — the
-evidence base for the compute-side optimization work (VERDICT r2 item 1).
+jax.profiler and prints the top XLA/Pallas ops by device time, summed over
+the GPU's device planes (process names "/device:GPU:<n>") of the
+profiler's trace.
 
-Usage: python tools/profile_step_trace.py [B] [outputs=full|decision]
+Usage: python tools/profile_step_trace.py [B] [outputs=full|decision] [trace_dir]
 """
 
-import glob
-import gzip
-import json
 import sys
 import time
-from collections import defaultdict
 
 import numpy as np
 import jax
 
 sys.path.insert(0, ".")
+sys.path.insert(0, "tools")
 
 from warpdemux_tpu.utils.jaxcache import enable_compilation_cache
 
 enable_compilation_cache()
 
 from bench import synth_minibatch
+from trace_reduce import device_times, print_table
 from warpdemux_tpu.config.utils import get_model_spc_config
 from warpdemux_tpu.models.registry import load_model
 from warpdemux_tpu.pipeline.step import make_demux_step
 
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
 OUTPUTS = sys.argv[2] if len(sys.argv) > 2 else "full"
-TRACE = f"/tmp/wdx_step_trace_{OUTPUTS}"
+TRACE = sys.argv[3] if len(sys.argv) > 3 else f"traces/step_{OUTPUTS}"
 L = 10000
 REPS = 6
 
@@ -60,46 +59,4 @@ with jax.profiler.trace(TRACE):
         out = step(*args)
     jax.block_until_ready(out)
 
-files = sorted(glob.glob(f"{TRACE}/**/*.trace.json.gz", recursive=True))
-with gzip.open(files[-1], "rt") as f:
-    trace = json.load(f)
-
-pid_name, tid_name = {}, {}
-for ev in trace["traceEvents"]:
-    if ev.get("ph") == "M" and ev.get("name") == "process_name":
-        pid_name[ev["pid"]] = ev["args"].get("name", "")
-    if ev.get("ph") == "M" and ev.get("name") == "thread_name":
-        tid_name[(ev["pid"], ev["tid"])] = ev["args"].get("name", "")
-
-dev_pids = {p for p, n in pid_name.items() if "TPU" in n or "device" in n.lower()}
-tot, cnt = defaultdict(float), defaultdict(int)
-scopes = {}
-mod_total = 0.0
-op_total = 0.0
-for ev in trace["traceEvents"]:
-    if ev.get("ph") != "X" or ev.get("pid") not in dev_pids:
-        continue
-    tname = tid_name.get((ev["pid"], ev["tid"]), "")
-    dur = ev.get("dur", 0) / 1e3
-    if "module" in tname.lower() or ev.get("name", "").startswith("jit_"):
-        mod_total += dur
-        continue
-    if "step" in tname.lower():
-        continue
-    nm = ev.get("name", "?")
-    tot[nm] += dur
-    cnt[nm] += 1
-    a = ev.get("args") or {}
-    scope = a.get("long_name") or a.get("tf_op") or a.get("hlo_op") or ""
-    if scope and nm not in scopes:
-        scopes[nm] = str(scope)
-    op_total += dur
-
-print(f"# module lane: {mod_total/REPS:.2f} ms/mb; op lane: {op_total/REPS:.2f} ms/mb")
-print("| op | ms/minibatch | calls/mb | % | scope |")
-print("|---|---|---|---|---|")
-for name, ms in sorted(tot.items(), key=lambda kv: -kv[1])[:30]:
-    print(
-        f"| {name[:70]} | {ms/REPS:8.3f} | {cnt[name]//REPS} |"
-        f" {100*ms/max(op_total,1e-9):5.1f} | {scopes.get(name,'')[:140]} |"
-    )
+print_table(device_times(TRACE), REPS)

@@ -1,8 +1,8 @@
 """Minibatch-size sweep (VERDICT r2 item 10).
 
-The reference's B=1000 default is a CPU-memory constraint
-(/root/reference/README.md:378-385: ~2 GB/core at minibatch 1000); the TPU
-has no such constraint, so sweep B and report the device-compute throughput
+The reference's B=1000 default is a CPU-memory constraint (its README
+gives ~2 GB/core at minibatch 1000); an 80 GB card has no such
+constraint, so sweep B and report the device-compute throughput
 knee. Device-resident inputs, 2 fetch threads, full-output step — the same
 measurement as bench.py's compute_only.
 

@@ -1,14 +1,14 @@
-"""warpdemux_tpu: TPU-native raw-signal barcode demultiplexing.
+"""warpdemux_tpu: raw-signal barcode demultiplexing on an accelerator.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of KleistLab/WarpDemuX:
 adapter detection, event segmentation, DTW fingerprint classification
 (precomputed-kernel SVM), offline batch demultiplexing, and live barcode
-balancing (adaptive sampling) — engineered for TPU hardware:
+balancing (adaptive sampling) — as batched device programs:
 
 - fixed-shape, mask-based batched numerics (no ragged host loops),
-- a Pallas anti-diagonal-wavefront kernel for banded DTW distance matrices,
-- MXU matmuls for the SVM kernel/decision stage,
-- pjit/shard_map data parallelism over device meshes for multi-chip scaling,
+- a fused Pallas (Triton) kernel for banded DTW distance matrices,
+- one matmul for the SVM decision stage,
+- shard_map data parallelism over a device mesh for several cards,
 - a low-latency micro-batched lane for the live (read-until) path.
 """
 

@@ -2,7 +2,7 @@
 
 Same command surface as the reference (warpdemux/main.py + parser.py:
 4 subcommands, run-dir layout, command.json resume manifest, --export
-config overrides) on the TPU-native pipeline.
+config overrides) on the fused accelerator pipeline.
 """
 
 from __future__ import annotations
@@ -75,21 +75,21 @@ def _add_common(p):
                         "decisions bit-identical). 0 disables")
     p.add_argument("-j", "--devices", type=int, default=1,
                    help="devices to shard each minibatch over "
-                        "(0 = all local devices; the reference's -j "
-                        "reads-parallelism mapped onto a jax Mesh)")
+                        "(0 = all local devices; more than exist is an "
+                        "error; the reference's -j reads-parallelism "
+                        "mapped onto a jax Mesh)")
     p.add_argument("--jax-platform", default=None,
                    help="force a jax backend (e.g. cpu) before init")
     p.add_argument("--profile-dir", default=None,
                    help="write a JAX/XLA profiler trace for the run "
                         "(view with tensorboard / xprof)")
     # multi-host data parallelism (SURVEY 2.2: the reference scales by
-    # reads-parallelism over cores, file_proc.py:1197-1245; a pod slice
-    # scales by hosts: disjoint pod5 file shards per host, host-tagged
-    # output shards, psum'd global counters)
+    # reads-parallelism over cores, file_proc.py:1197-1245; several hosts
+    # scale by disjoint pod5 file shards per host, host-tagged output
+    # shards, psum'd global counters)
     p.add_argument("--coordinator", default=None,
                    help="jax.distributed coordinator address (host:port); "
-                        "omit on single-host runs. On TPU pods with the "
-                        "standard environment, pass 'env' to autodetect")
+                        "omit on single-host runs")
     p.add_argument("--num-processes", type=int, default=None,
                    help="total process count for --coordinator runs")
     p.add_argument("--process-id", type=int, default=None,
@@ -99,7 +99,7 @@ def _add_common(p):
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="warpdemux-tpu",
-        description="TPU-native raw-signal barcode demultiplexing",
+        description="raw-signal barcode demultiplexing on an accelerator",
     )
     sub = ap.add_subparsers(dest="command", required=True)
 

@@ -87,6 +87,7 @@ def apply(params: dict, x: jnp.ndarray) -> jnp.ndarray:
             padding=[(pad, pad)],
             rhs_dilation=(d,),
             dimension_numbers=("NCW", "OIW", "NCW"),
+            precision=jax.lax.Precision.HIGHEST,
         ) + params[f"b{i}"][None, :, None]
         if i < n - 1:
             h = jax.nn.relu(h)

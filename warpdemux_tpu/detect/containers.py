@@ -6,7 +6,7 @@ fail_reason, adapter/polyA boundaries and region summary statistics
 (reference: warpdemux/sig_proc.py:400-418 consumers;
 README.md:425-457 output column list).
 
-The reference keeps one DetectResults object per read; on TPU the whole
+The reference keeps one DetectResults object per read; here the whole
 minibatch is one struct of (B,) arrays. Fail reasons are integer codes on
 device, mapped to strings at the host boundary.
 """
@@ -109,14 +109,13 @@ class DetectArrays(NamedTuple):
     ):
         """Rows for detected_boundaries/failed_reads CSVs
         (column contract: README.md:425-457; per-method columns use the
-        configured primary method's name as prefix, :443-446)."""
-        import pandas as pd
-
+        configured primary method's name as prefix, :443-446), as an
+        io.writers Frame."""
         g = lambda a: np.asarray(a)
         B = len(read_ids)
         zf = lambda a: g(a) if a is not None else np.zeros(B, np.float32)
         cols = {
-            "read_id": list(read_ids),
+            "read_id": np.asarray(read_ids, object),
             "signal_len": np.asarray(full_lengths),
             "preloaded": np.asarray(in_lengths),
             "adapter_start": g(self.adapter_start),
@@ -167,4 +166,4 @@ class DetectArrays(NamedTuple):
                 cols[f"{name}_polya_end"] = g(p1)
                 cols[f"{name}_fail_reason"] = fail_code_to_reason(g(fc))
         cols["fail_reason"] = fail_code_to_reason(g(self.fail_code))
-        return pd.DataFrame(cols)
+        return cols

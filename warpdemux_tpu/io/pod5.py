@@ -4,15 +4,16 @@ The pod5 format is a container of embedded Apache Arrow IPC files (a signal
 table, a run-info table, and a reads table) behind an 8-byte signature.
 Rather than depending on ONT's pod5 C++ library, this reader locates the
 embedded Arrow files (each starts with the 8-byte "ARROW1\\0\\0" magic and
-ends with the trailing "ARROW1"), opens them with pyarrow, and decodes VBZ
-signal chunks on demand (io/vbz.py).
+ends with the trailing "ARROW1"), parses them with the in-repo Arrow IPC
+reader (io/arrow_ipc.py), and decodes VBZ signal chunks on demand
+(io/vbz.py).
 
 Capability parity: the reference streams `signal_pa` per read through ONT's
 pod5 Reader (warpdemux/file_proc.py:249-261, live watcher
 live_balancing/balancer.py:369-376 reading num_minknow_events / end_reason /
 channel). `yield_signal_batches` reproduces the fixed-shape minibatch
 preloading of file_proc.py:227-279 with zero-padding + explicit lengths
-(mask-based, TPU-friendly) instead of NaN tails.
+(mask-based, fixed-shape) instead of NaN tails.
 
 Signal is chunked (~102400 samples per signal-table row); only the chunks
 covering the requested preload window are decompressed.
@@ -21,38 +22,24 @@ covering the requested preload window are decompressed.
 from __future__ import annotations
 
 import re
-import threading
+import struct
 import uuid
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Generator, Iterable, Sequence
 
 import numpy as np
-import pyarrow as pa
-import pyarrow.ipc as ipc
 
-import zstandard
-
-from warpdemux_tpu.io import vbz
-
-_ZSTD_D = zstandard.ZstdDecompressor()
-# ZstdDecompressor objects are not safe for concurrent use (shared internal
-# DCtx); the threaded feed takes one per thread
-_ZSTD_TLS = threading.local()
-
-
-def _zstd_tls() -> "zstandard.ZstdDecompressor":
-    d = getattr(_ZSTD_TLS, "d", None)
-    if d is None:
-        d = _ZSTD_TLS.d = zstandard.ZstdDecompressor()
-    return d
+from warpdemux_tpu import native
+from warpdemux_tpu.io import arrow_ipc, vbz
 
 _POD5_SIGNATURE = b"\x8bPOD\r\n\x1a\n"
 _ARROW_MAGIC = b"ARROW1\x00\x00"
 
 
-def _embedded_arrow_tables(data: bytes) -> list[pa.Table]:
+def _embedded_arrow_tables(data: bytes) -> list[arrow_ipc.Table]:
     """Locate and open every embedded Arrow IPC file in the container."""
+    view = memoryview(data)
     starts = [m.start() for m in re.finditer(re.escape(_ARROW_MAGIC), data)]
     tables = []
     used_end = 0
@@ -62,13 +49,11 @@ def _embedded_arrow_tables(data: bytes) -> list[pa.Table]:
         # the file ends at the next trailing ARROW1 magic
         probe = data.find(b"ARROW1", s + 8)
         while probe != -1:
-            chunk = data[s : probe + 6]
             try:
-                reader = ipc.open_file(pa.BufferReader(chunk))
-                tables.append(reader.read_all())
+                tables.append(arrow_ipc.read_file(view[s : probe + 6]))
                 used_end = probe + 6
                 break
-            except Exception:
+            except (ValueError, KeyError, IndexError, struct.error):
                 probe = data.find(b"ARROW1", probe + 6)
     return tables
 
@@ -115,7 +100,7 @@ class Pod5Reader:
         self._reads_t = None
         self._runinfo_t = None
         for t in tables:
-            names = set(t.schema.names)
+            names = set(t.names)
             if {"read_id", "signal", "samples"} <= names:
                 self._signal_t = t
             elif "read_number" in names or "num_samples" in names:
@@ -125,24 +110,19 @@ class Pod5Reader:
         if self._signal_t is None or self._reads_t is None:
             raise ValueError(f"{path}: missing pod5 tables")
         # materialize hot columns once
-        self._sig_payload = self._signal_t.column("signal").to_pylist()
+        self._sig_payload = self._signal_t.column("signal")
         self._sig_samples = np.asarray(
             self._signal_t.column("samples"), np.int64
         )
         rt = self._reads_t
-        self._read_ids = [
-            str(uuid.UUID(bytes=b.as_py()))
-            for b in rt.column("read_id")
-        ]
-        self._signal_rows = rt.column("signal").to_pylist()
+        self._read_ids = [str(uuid.UUID(bytes=b)) for b in rt.column("read_id")]
+        self._signal_rows = rt.column("signal")
         self._num_samples = np.asarray(rt.column("num_samples"), np.int64)
         self._channel = np.asarray(rt.column("channel"), np.int64)
         self._well = np.asarray(rt.column("well"), np.int64)
         self._cal_offset = np.asarray(rt.column("calibration_offset"), np.float64)
         self._cal_scale = np.asarray(rt.column("calibration_scale"), np.float64)
-        self._end_reason = [
-            str(v) for v in rt.column("end_reason").to_pylist()
-        ]
+        self._end_reason = [str(v) for v in rt.column("end_reason")]
         self._num_mk_events = np.asarray(
             rt.column("num_minknow_events"), np.int64
         )
@@ -159,7 +139,7 @@ class Pod5Reader:
     @property
     def sample_rate(self) -> float:
         if self._runinfo_t is not None:
-            return float(self._runinfo_t.column("sample_rate")[0].as_py())
+            return float(self._runinfo_t.column("sample_rate")[0])
         return 4000.0
 
     def _decode_signal(
@@ -334,9 +314,9 @@ def yield_vbz_batches(
         n = min(L, rec.num_samples)
         srows = rec._signal_rows
         if len(srows) and int(reader._sig_samples[srows[0]]) >= n:
-            raw = _zstd_tls().decompress(
+            raw = native.zstd_decompress(
                 reader._sig_payload[srows[0]],
-                max_output_size=4 * int(reader._sig_samples[srows[0]]) + 16,
+                4 * int(reader._sig_samples[srows[0]]) + 16,
             )
             row_n = int(reader._sig_samples[srows[0]])
             row_klen = (row_n + 7) // 8
@@ -363,12 +343,10 @@ def yield_vbz_batches(
             rec.read_id,
         )
 
-    # NOTE: measured single-threaded at ~9k reads/s (0.11 ms/read; the
-    # numpy repack holds the GIL, so a thread pool LOWERS throughput to
-    # ~5k). Plenty above the current link-capped e2e (~4k reads/s); for a
-    # locally-attached-device deployment at the 35k reads/s device rate,
-    # shard input FILES across processes (parallel/multihost.shard_files)
-    # like the reference's process pool (file_proc.py:333-354).
+    # The numpy repack holds the GIL, so a thread pool does not help here;
+    # to scale the host feed, shard input FILES across processes
+    # (parallel/multihost.shard_files) like the reference's process pool
+    # (file_proc.py:333-354).
     rows: list = []
     for filename in pod5_files:
         with Pod5Reader(filename) as reader:
@@ -390,7 +368,7 @@ def yield_adc_batches(
     batch_size: int,
     preload_size: int,
 ) -> Generator[tuple, None, None]:
-    """ADC-domain minibatch preloading: the TPU-native feed format.
+    """ADC-domain minibatch preloading: the int16 feed format.
 
     Same batching contract as yield_signal_batches, but signals stay in the
     pod5-native int16 ADC domain with per-read calibration scalars, so the

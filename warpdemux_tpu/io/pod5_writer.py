@@ -14,20 +14,12 @@ import uuid as uuid_mod
 from pathlib import Path
 
 import numpy as np
-import pyarrow as pa
-import pyarrow.ipc as ipc
 
-from warpdemux_tpu.io import vbz
+from warpdemux_tpu.io import arrow_ipc, vbz
 
 _POD5_SIGNATURE = b"\x8bPOD\r\n\x1a\n"
 SIGNAL_CHUNK = 102400  # samples per signal row (pod5 default scale)
-
-
-def _arrow_file_bytes(table: pa.Table) -> bytes:
-    sink = pa.BufferOutputStream()
-    with ipc.new_file(sink, table.schema) as w:
-        w.write_table(table)
-    return sink.getvalue().to_pybytes()
+_U8, _U16, _U32, _U64 = (("int", b, False) for b in (8, 16, 32, 64))
 
 
 def write_pod5(path: str | Path, reads: list[dict], sample_rate: float = 4000.0):
@@ -63,33 +55,26 @@ def write_pod5(path: str | Path, reads: list[dict], sample_rate: float = 4000.0)
         r_endr.append(str(rd.get("end_reason", "signal_positive")))
         r_mk.append(int(rd.get("num_minknow_events", sig.size // 10)))
 
-    signal_t = pa.table(
-        {
-            "read_id": pa.array(sig_ids, pa.binary(16)),
-            "signal": pa.array(sig_payloads, pa.large_binary()),
-            "samples": pa.array(sig_samples, pa.uint32()),
-        }
-    )
-    reads_t = pa.table(
-        {
-            "read_id": pa.array(r_ids, pa.binary(16)),
-            "signal": pa.array(r_rows, pa.list_(pa.uint64())),
-            "num_samples": pa.array(r_nsamp, pa.uint64()),
-            "channel": pa.array(r_chan, pa.uint16()),
-            "well": pa.array(r_well, pa.uint8()),
-            "calibration_offset": pa.array(r_off, pa.float32()),
-            "calibration_scale": pa.array(r_scale, pa.float32()),
-            "end_reason": pa.array(r_endr, pa.string()),
-            "num_minknow_events": pa.array(r_mk, pa.uint64()),
-        }
-    )
-    runinfo_t = pa.table({"sample_rate": pa.array([sample_rate], pa.float64())})
+    signal_t = [
+        ("read_id", ("fixed_size_binary", 16), sig_ids),
+        ("signal", ("large_binary",), sig_payloads),
+        ("samples", _U32, sig_samples),
+    ]
+    reads_t = [
+        ("read_id", ("fixed_size_binary", 16), r_ids),
+        ("signal", ("list", _U64), r_rows),
+        ("num_samples", _U64, r_nsamp),
+        ("channel", _U16, r_chan),
+        ("well", _U8, r_well),
+        ("calibration_offset", ("float", 32), r_off),
+        ("calibration_scale", ("float", 32), r_scale),
+        ("end_reason", ("utf8",), r_endr),
+        ("num_minknow_events", _U64, r_mk),
+    ]
+    runinfo_t = [("sample_rate", ("float", 64), [sample_rate])]
 
-    blob = (
-        _POD5_SIGNATURE
-        + _arrow_file_bytes(signal_t)
-        + _arrow_file_bytes(reads_t)
-        + _arrow_file_bytes(runinfo_t)
+    blob = _POD5_SIGNATURE + b"".join(
+        arrow_ipc.write_file(t) for t in (signal_t, reads_t, runinfo_t)
     )
     Path(path).write_bytes(blob)
     return path

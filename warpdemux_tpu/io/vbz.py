@@ -8,66 +8,25 @@ Decode layout (n = sample count):
   data = raw[ceil(n/8):]           variable-width values
   value -> zig-zag decode -> cumulative sum -> int16 ADC counts
 
-The numpy implementation vectorizes the variable-width unpack with an
-offset prefix sum. A C++ hot path can be slotted behind the same signature
-if decode ever dominates profiles (each read decodes ~10k samples in ~50us).
+Both directions run in the native library (warpdemux_tpu/native, one pass,
+no temporaries); `ops/vbz_device.inner_layout_from_adc` is the numpy
+reference of the inner layout.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import zstandard
 
-_DCTX = zstandard.ZstdDecompressor()
+from warpdemux_tpu import native
 
 
 def decode(payload: bytes, n: int) -> np.ndarray:
-    """Decode a VBZ-compressed signal chunk into int16 ADC counts.
-
-    Prefers the native C++ decoder (warpdemux_tpu/native, ~one pass, no
-    temporaries); falls back to the vectorized numpy path below when the
-    toolchain is unavailable."""
+    """Decode a VBZ-compressed signal chunk into int16 ADC counts."""
     if n == 0:
         return np.zeros(0, np.int16)
-    from warpdemux_tpu import native
-
-    out = native.vbz_decode(payload, n)
-    if out is not None:
-        return out
-    raw = _DCTX.decompress(payload, max_output_size=4 * n + 16)
-    keylen = (n + 7) // 8
-    keys = np.frombuffer(raw, np.uint8, count=keylen)
-    data = np.frombuffer(raw, np.uint8, offset=keylen)
-    bits = np.unpackbits(keys, bitorder="little", count=n)
-    nbytes = bits.astype(np.int64) + 1
-    offs = np.empty(n, np.int64)
-    offs[0] = 0
-    np.cumsum(nbytes[:-1], out=offs[1:])
-    lo = data[offs].astype(np.uint16)
-    hi_idx = np.minimum(offs + 1, len(data) - 1)
-    hi = np.where(bits == 1, data[hi_idx].astype(np.uint16), 0)
-    vals = lo | (hi << np.uint16(8))
-    # zig-zag decode to signed deltas, then integrate.
-    sv = (vals >> 1).astype(np.int32) ^ -(vals & 1).astype(np.int32)
-    return np.cumsum(sv, dtype=np.int32).astype(np.int16)
+    return native.vbz_decode(payload, n)
 
 
 def encode(signal: np.ndarray) -> bytes:
-    """Inverse of decode (used by tests and synthetic-fixture generation)."""
-    sig = np.asarray(signal, np.int32)
-    deltas = np.diff(sig, prepend=np.int32(0))
-    zz = ((deltas << 1) ^ (deltas >> 31)).astype(np.uint32)
-    if np.any(zz > 0xFFFF):
-        raise ValueError("delta out of int16 zig-zag range")
-    zz = zz.astype(np.uint16)
-    n = len(zz)
-    bits = (zz > 0xFF).astype(np.uint8)
-    keys = np.packbits(bits, bitorder="little")
-    lo = (zz & 0xFF).astype(np.uint8)
-    hi = (zz >> 8).astype(np.uint8)
-    data = np.empty(int(bits.sum()) + n, np.uint8)
-    offs = np.concatenate([[0], np.cumsum(bits.astype(np.int64) + 1)[:-1]])
-    data[offs] = lo
-    data[offs[bits == 1] + 1] = hi[bits == 1]
-    raw = keys.tobytes() + data.tobytes()
-    return zstandard.ZstdCompressor(level=1).compress(raw)
+    """Inverse of decode (synthetic pod5 files, tests)."""
+    return native.vbz_encode(signal)

@@ -246,9 +246,5 @@ def debug_test(n_reads: int = 120, save_path: str = "/tmp/wdx_live_debug"):
 if __name__ == "__main__":
     import sys as _sys
 
-    import jax as _jax
-
-    if "--tpu" not in _sys.argv:
-        _jax.config.update("jax_platforms", "cpu")
     n = next((int(a) for a in _sys.argv[1:] if a.isdigit()), 120)
     debug_test(n)

@@ -16,7 +16,9 @@ import argparse
 import sys
 
 
-def main(argv=None):
+def run(argv=None):
+    """Parse the command line, run the session to its end, and return it
+    (None when no MinKNOW connection is available)."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config_file", required=True)
     ap.add_argument("--dummy", action="store_true",
@@ -53,7 +55,7 @@ def main(argv=None):
         except RuntimeError as e:
             print(f"{e}; run with --dummy for the replay harness",
                   file=sys.stderr)
-            return 2
+            return None
         client = ReadUntilClient(
             transport,
             cache=AccumulatingCache(size=5120),
@@ -66,12 +68,25 @@ def main(argv=None):
 
     session = build_session(args.config_file, client=client)
     session.run()
+    return session
+
+
+def main(argv=None):
+    session = run(argv)
+    if session is None:
+        return 2
     print("skip stats:", session.skip_stats)
     print("counters:", session.reporter.counters.summary())
     print("latency:", {
         k: f"{m*1000:.1f}+/-{s*1000:.1f}ms"
         for k, (m, s) in session.reporter.latency_stats().items()
     })
+    tot = session.reporter.latency_percentiles().get("total")
+    if tot:
+        print(
+            f"decision latency p50 {tot['p50'] * 1e3:.2f} ms, "
+            f"p99 {tot['p99'] * 1e3:.2f} ms over {tot['n']} decisions"
+        )
     return 0
 
 

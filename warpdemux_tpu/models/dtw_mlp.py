@@ -36,7 +36,7 @@ def mlp_predict_proba(
         h = (h - scaler_mean[None, :]) / scaler_scale[None, :]
     n = len(weights)
     for i, (W, b) in enumerate(zip(weights, biases)):
-        h = h @ W + b[None, :]
+        h = jnp.matmul(h, W, precision=jax.lax.Precision.HIGHEST) + b[None, :]
         if i < n - 1:
             h = jax.nn.relu(h)
     return jax.nn.softmax(h, axis=-1)

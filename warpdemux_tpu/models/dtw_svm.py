@@ -1,9 +1,9 @@
 """Batched DTW + precomputed-kernel SVM predictor.
 
-The TPU-native equivalent of the reference's DTW_SVM.predict
+The batched equivalent of the reference's DTW_SVM.predict
 (warpdemux/models/dtw_svm.py:54-98): one jitted device function computes
-DTW distances (Pallas wavefront / jnp fallback), the exp kernel, one-vs-one
-decision values (MXU matmul), Platt + Wu-Lin probabilities, and
+DTW distances (the fused kernel of ops/dtw_triton.py), the exp kernel,
+one-vs-one decision values (one matmul), Platt + Wu-Lin probabilities, and
 argmax/margin/threshold post-processing for a whole minibatch at once.
 
 The reference parallelizes the distance matrix over a process pool
@@ -22,6 +22,7 @@ import numpy as np
 
 from warpdemux_tpu.ops import svm as svm_ops
 from warpdemux_tpu.ops.dtw import dtw_distance_matrix
+from warpdemux_tpu.ops.dtw_triton import dtw_distance_matrix_kernel
 
 
 @dataclass(frozen=True)
@@ -87,8 +88,16 @@ class DTWSVMModel:
         X_sv, params = self.X_sv, self.params
         label_map, thresholds = self.label_map, self.thresholds
 
+        # float64 bundles are the sklearn-parity mode: keep their DTW in
+        # float64 (the fused kernel computes in float32)
+        dtw = (
+            dtw_distance_matrix
+            if X_sv.dtype == jnp.float64
+            else dtw_distance_matrix_kernel
+        )
+
         def fn(fpts):
-            D = dtw_distance_matrix(fpts, X_sv, window, penalty)
+            D = dtw(fpts, X_sv, window, penalty)
             K = svm_ops.pdist_kernel(D, gamma, pwr)
             probs = svm_ops.predict_proba(K, params)
             pred, conf = svm_ops.process_probs(probs, label_map, thresholds)
@@ -110,15 +119,14 @@ class DTWSVMModel:
 
     def predictions_to_df(self, read_ids, pred, conf, probs):
         """Build the reference's prediction table
-        (models/utils.py:36-43: predicted_barcode, confidence_score, p{label:02d})."""
-        import pandas as pd
-
+        (models/utils.py:36-43: predicted_barcode, confidence_score, p{label:02d})
+        as an io.writers Frame."""
         label_map = np.asarray(self.label_map)
         cols = {
-            "#read_id": read_ids,
+            "#read_id": np.asarray(read_ids, object),
             "predicted_barcode": pred,
             "confidence_score": np.round(conf, 3),
         }
         for i in range(probs.shape[1]):
             cols[f"p{label_map[i]:02d}"] = np.round(probs[:, i], 4)
-        return pd.DataFrame(cols)
+        return cols

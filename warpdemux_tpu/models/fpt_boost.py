@@ -10,7 +10,7 @@ Catboost multiclass models are ensembles of *oblivious* (symmetric)
 decision trees: every level of a tree tests one (feature, threshold) pair,
 so a depth-d tree is d split conditions and 2^d leaf-value vectors, and a
 sample's leaf index is the d-bit word of split outcomes. That structure is
-ideal for the TPU: for a (B, m) fingerprint batch and T trees of depth d,
+ideal for an accelerator: for a (B, m) fingerprint batch and T trees of depth d,
 the whole forest evaluates as
 
     bits  = x[:, feat] > thr            (B, T, d) elementwise compares

@@ -13,33 +13,53 @@ for other targets.
 
 from __future__ import annotations
 
+import csv
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 ASSET_DIR = Path(__file__).parent / "target_accuracy_thresholds"
+
+
+@dataclass(frozen=True)
+class Calibration:
+    """Per-barcode confidence thresholds: one row per barcode, one column
+    per precision target (95.0, 96.0, ... 99.9)."""
+
+    barcodes: list[int]
+    targets: list[float]
+    table: np.ndarray  # (len(barcodes), len(targets))
+
+    def threshold(self, barcode: int, target: float) -> float:
+        return float(
+            self.table[self.barcodes.index(barcode), self.targets.index(target)]
+        )
 
 
 def available_calibrations() -> list[str]:
     return sorted(p.stem for p in ASSET_DIR.glob("*.csv"))
 
 
-def load_calibration(name: str) -> pd.DataFrame:
-    """Load a calibration table; index = true_barcode, columns = targets
-    as floats (95.0, 96.0, ... 99.9)."""
+def load_calibration(name: str) -> Calibration:
+    """Load a calibration table (true_barcode column, then one column per
+    target named like 99_9)."""
     path = ASSET_DIR / f"{name}.csv"
     if not path.exists():
         raise FileNotFoundError(
             f"calibration {name!r} not found; available: "
             f"{available_calibrations()}"
         )
-    df = pd.read_csv(path).set_index("true_barcode")
-    df.columns = [float(c.replace("_", ".")) for c in df.columns]
-    return df
+    with open(path, newline="") as fh:
+        header, *rows = list(csv.reader(fh))
+    return Calibration(
+        barcodes=[int(r[0]) for r in rows],
+        targets=[float(c.replace("_", ".")) for c in header[1:]],
+        table=np.array([[float(v) for v in r[1:]] for r in rows]),
+    )
 
 
-def calibration_for_model(model_name: str) -> pd.DataFrame:
+def calibration_for_model(model_name: str) -> Calibration:
     """Find the calibration asset for a model (prefix match on the
     registry naming scheme, e.g. WDX4_rna004_v1_0 ->
     WDX4_rna004__3_4_5_7@v0.4.4)."""
@@ -53,14 +73,14 @@ def calibration_for_model(model_name: str) -> pd.DataFrame:
     )
 
 
-def thresholds_at(calibration: pd.DataFrame, target: float) -> dict[int, float]:
+def thresholds_at(calibration: Calibration, target: float) -> dict[int, float]:
     """Per-barcode thresholds for a precision target (exact column match)."""
-    if target not in calibration.columns:
+    if target not in calibration.targets:
         raise KeyError(
             f"target {target} not calibrated; available: "
-            f"{list(calibration.columns)}"
+            f"{calibration.targets}"
         )
-    return {int(bc): float(v) for bc, v in calibration[target].items()}
+    return {bc: calibration.threshold(bc, target) for bc in calibration.barcodes}
 
 
 def apply_target_performance(
@@ -78,17 +98,15 @@ def apply_target_performance(
     return pred
 
 
-def filter_predictions_df(
-    df: pd.DataFrame, model_name: str, target: float
-) -> pd.DataFrame:
-    """Apply target-performance filtering to a predictions table
-    (the csv.gz written by the demux/predict pipelines)."""
-    cal = calibration_for_model(model_name)
-    thr = thresholds_at(cal, target)
-    out = df.copy()
+def filter_predictions_df(df: dict, model_name: str, target: float) -> dict:
+    """Apply target-performance filtering to a predictions table (an
+    io.writers Frame, as written to csv.gz by the demux/predict pipelines);
+    returns a new table."""
+    thr = thresholds_at(calibration_for_model(model_name), target)
+    out = dict(df)
     out["predicted_barcode"] = apply_target_performance(
-        df["predicted_barcode"].to_numpy(),
-        df["confidence_score"].to_numpy(),
+        np.asarray(df["predicted_barcode"]),
+        np.asarray(df["confidence_score"], float),
         thr,
     )
     return out

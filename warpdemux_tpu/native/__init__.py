@@ -1,11 +1,12 @@
 """ctypes bindings for the native host kernels (wdx_native.cpp).
 
-The shared library is built on demand with `make` (g++, links libzstd) the
-first time it is requested; every entry point has a pure-numpy fallback at
-its call site, so environments without a toolchain still work. Exposes:
+The shared library is built on demand with `make` (g++, links the zstd
+runtime libzstd.so.1) the first time it is requested. The pod5 ingest
+needs it: a failed build raises, with the compiler's message. Exposes:
 
 - vbz_decode / vbz_encode: the pod5 signal codec (zstd over
   streamvbyte-16 zig-zag deltas) — the ingest hot path,
+- zstd_decompress: plain zstd frames (the compressed-wire feed),
 - windowed_t_test, segment_means: the reference Cython segmentation
   kernels (_c_segmentation.pyx) for the live lane's single-read host path,
 - mvs_scan: streaming mean-variance-shift polyA scan for live chunks.
@@ -24,33 +25,45 @@ _DIR = Path(__file__).parent
 _LIB_PATH = _DIR / "libwdx_native.so"
 _lock = threading.Lock()
 _lib = None
-_build_failed = False
+_build_error: str | None = None
+
+
+def _build() -> None:
+    try:
+        subprocess.run(
+            ["make", "-s"], cwd=_DIR, check=True, capture_output=True,
+            text=True, timeout=120,
+        )
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"building {_LIB_PATH.name} failed:\n{e.stderr}") from e
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"building {_LIB_PATH.name} failed: {e}") from e
 
 
 def _load():
-    global _lib, _build_failed
-    if _lib is not None or _build_failed:
+    """The loaded library; builds it on first use. Raises if it cannot."""
+    global _lib, _build_error
+    if _lib is not None:
         return _lib
     with _lock:
-        if _lib is not None or _build_failed:
+        if _lib is not None:
             return _lib
-        if not _LIB_PATH.exists():
-            try:
-                subprocess.run(
-                    ["make", "-s"],
-                    cwd=_DIR,
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except Exception:
-                _build_failed = True
-                return None
+        if _build_error is not None:
+            raise RuntimeError(_build_error)
         try:
+            if not _LIB_PATH.exists():
+                _build()
             lib = ctypes.CDLL(str(_LIB_PATH))
-        except OSError:
-            _build_failed = True
-            return None
+        except (RuntimeError, OSError) as e:
+            _build_error = str(e)
+            raise RuntimeError(_build_error) from e
+        lib.zstd_decompress.restype = ctypes.c_int64
+        lib.zstd_decompress.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int64,
+        ]
         lib.vbz_decode.restype = ctypes.c_int
         lib.vbz_decode.argtypes = [
             ctypes.c_char_p,
@@ -99,14 +112,28 @@ def _load():
 
 
 def available() -> bool:
-    return _load() is not None
+    try:
+        _load()
+    except RuntimeError:
+        return False
+    return True
 
 
-def vbz_decode(payload: bytes, n: int) -> np.ndarray | None:
-    """Decode VBZ payload to int16 ADC; None if the native lib is absent."""
+def zstd_decompress(payload: bytes, max_output_size: int) -> bytes:
+    """Decompress one zstd frame of at most max_output_size bytes."""
+    out = np.empty(max_output_size, np.uint8)
+    n = _load().zstd_decompress(
+        payload, len(payload),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
+    )
+    if n < 0:
+        raise ValueError("zstd_decompress failed")
+    return out[:n].tobytes()
+
+
+def vbz_decode(payload: bytes, n: int) -> np.ndarray:
+    """Decode a VBZ payload to int16 ADC."""
     lib = _load()
-    if lib is None:
-        return None
     out = np.empty(n, np.int16)
     scratch = np.empty(4 * n + 64, np.uint8)
     rc = lib.vbz_decode(
@@ -122,10 +149,8 @@ def vbz_decode(payload: bytes, n: int) -> np.ndarray | None:
     return out
 
 
-def vbz_encode(signal: np.ndarray) -> bytes | None:
+def vbz_encode(signal: np.ndarray) -> bytes:
     lib = _load()
-    if lib is None:
-        return None
     sig = np.ascontiguousarray(signal, np.int16)
     n = sig.size
     bound = lib.vbz_encode_bound(n)
@@ -144,11 +169,9 @@ def vbz_encode(signal: np.ndarray) -> bytes | None:
     return out[:size].tobytes()
 
 
-def windowed_t_test(x: np.ndarray, w: int) -> np.ndarray | None:
-    """Reference Cython t-test scores for one read; None without the lib."""
+def windowed_t_test(x: np.ndarray, w: int) -> np.ndarray:
+    """Reference Cython t-test scores for one read."""
     lib = _load()
-    if lib is None:
-        return None
     xd = np.ascontiguousarray(x, np.float64)
     n = xd.size
     out = np.zeros(max(n - 2 * w, 0), np.float64)
@@ -162,10 +185,8 @@ def windowed_t_test(x: np.ndarray, w: int) -> np.ndarray | None:
     return out
 
 
-def segment_means(x: np.ndarray, cpts: np.ndarray) -> np.ndarray | None:
+def segment_means(x: np.ndarray, cpts: np.ndarray) -> np.ndarray:
     lib = _load()
-    if lib is None:
-        return None
     xd = np.ascontiguousarray(x, np.float64)
     cp = np.ascontiguousarray(cpts, np.int64)
     out = np.zeros(max(cp.size - 1, 0), np.float64)
@@ -180,10 +201,8 @@ def segment_means(x: np.ndarray, cpts: np.ndarray) -> np.ndarray | None:
     return out
 
 
-def mvs_scan(x: np.ndarray, w: int, thr_mean: float, thr_var: float) -> int | None:
+def mvs_scan(x: np.ndarray, w: int, thr_mean: float, thr_var: float) -> int:
     lib = _load()
-    if lib is None:
-        return None
     xf = np.ascontiguousarray(x, np.float32)
     return int(
         lib.mvs_scan(

@@ -3,20 +3,34 @@
 // The reference's host hot paths are native too: pod5's C++/Arrow reader
 // decodes VBZ-compressed signal, and a Cython kernel computes the windowed
 // t-test (reference warpdemux/segmentation/_c_segmentation.pyx; pod5 signal
-// codec = zstd over streamvbyte-16 with zig-zag delta coding). The TPU
+// codec = zstd over streamvbyte-16 with zig-zag delta coding). This
 // framework keeps the *batch* compute on device, but the ingest decode and
 // the live lane's single-read operations run on host — these are their
 // C++ implementations, exposed through a minimal C ABI consumed via ctypes
 // (warpdemux_tpu/native/__init__.py). Build: `make` in this directory
-// (g++ -O3 -shared, links libzstd).
+// (g++ -O3 -shared, links the zstd runtime libzstd.so.1; no headers needed).
 
 #include <cmath>
+#include <cstddef>
 #include <cstdint>
 #include <cstring>
 
-#include <zstd.h>
-
 extern "C" {
+
+// The four libzstd entry points used here (stable ABI since zstd 1.0).
+size_t ZSTD_compress(void* dst, size_t dst_capacity, const void* src,
+                     size_t src_size, int level);
+size_t ZSTD_decompress(void* dst, size_t dst_capacity, const void* src,
+                       size_t compressed_size);
+size_t ZSTD_compressBound(size_t src_size);
+unsigned ZSTD_isError(size_t code);
+
+// Plain zstd frame decompression; returns the decompressed size, or -1.
+int64_t zstd_decompress(const uint8_t* src, int64_t src_len, uint8_t* dst,
+                        int64_t dst_cap) {
+  size_t n = ZSTD_decompress(dst, (size_t)dst_cap, src, (size_t)src_len);
+  return ZSTD_isError(n) ? -1 : (int64_t)n;
+}
 
 // ---------------------------------------------------------------------------
 // VBZ signal codec (pod5 signal compression): zstd( keys || data ) where

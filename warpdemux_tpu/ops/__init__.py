@@ -30,16 +30,16 @@ def distance_matrix_to(
     (warpdemux/parallel_distances.py:48-84): X-by-Y banded DTW distances.
 
     block_size / n_jobs are accepted for API familiarity and ignored — the
-    whole matrix is one device launch (Pallas on TPU backends); scaling
-    happens across chips via the runtime mesh instead of a process pool.
+    whole matrix is one fused kernel launch; scaling happens across devices
+    via the runtime mesh instead of a process pool.
     """
     import jax
     import numpy as np
 
-    from warpdemux_tpu.ops.dtw_pallas import dtw_distance_matrix_auto
+    from warpdemux_tpu.ops.dtw_triton import dtw_distance_matrix_kernel
 
     return np.asarray(
-        dtw_distance_matrix_auto(
+        dtw_distance_matrix_kernel(
             jax.numpy.asarray(X, jax.numpy.float32),
             jax.numpy.asarray(Y, jax.numpy.float32),
             window,

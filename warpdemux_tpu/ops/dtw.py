@@ -16,11 +16,11 @@ dtaidistance 2.3.13 `dtw.distance` semantics reproduced here:
   i.e. for equal lengths |i - j| <= w - 1.
 - result = sqrt(D[r, c]).
 
-The TPU formulation is an anti-diagonal wavefront: all (B x N) 25x25 lattices
-advance one diagonal per step, states held as (B, N, m) element-wise arrays on
-the VPU; 2m-1 steps total. `dtw_pallas.py` carries the same recurrence into a
-VMEM-resident Pallas kernel; this module is the portable jnp version and the
-numpy scalar golden reference used by tests.
+This is the plain version: an anti-diagonal wavefront in which all (B x N)
+25x25 lattices advance one diagonal per `lax.scan` step, states held as
+(B, N, m) element-wise arrays; 2m-1 steps total. `dtw_triton.py` fuses the
+same recurrence into one kernel that the pipeline runs; this module is the
+reference it is checked against, plus the numpy scalar golden reference.
 """
 
 from __future__ import annotations

@@ -87,18 +87,18 @@ def extract_adapter_batch(
 
     Returns (buffer (B, buffer_len), lengths (B,)).
     """
-    from warpdemux_tpu.ops.window_gather import shift_rows_auto
+    from warpdemux_tpu.ops.window_gather import shift_rows
 
     B, L = signals.shape
     start = jnp.maximum(0, adapter_start - padding)
     end = jnp.minimum(in_lens, adapter_end + padding)
     length = jnp.clip(end - start, 0, buffer_len)
-    # right-pad so any start in [0, L] yields a full window for the
-    # dynamic-slice kernel; the tail is masked below anyway
+    # right-pad so any start in [0, L] yields a full window; the tail is
+    # masked below anyway
     padded = jnp.concatenate(
         [signals, jnp.zeros((B, buffer_len), signals.dtype)], axis=1
     )
-    buf = shift_rows_auto(padded, start, buffer_len)
+    buf = shift_rows(padded, start, buffer_len)
     mask = jnp.arange(buffer_len)[None, :] < length[:, None]
     return jnp.where(mask, buf, 0.0), length
 

@@ -2,10 +2,10 @@
 
 Capability parity with the reference's normalization layer
 (reference: warpdemux/sig_proc.py:70-168 — mad_normalize, mean_normalize,
-normalize, normalize_wrt), re-designed for TPU: instead of NaN-padded ragged
-arrays and `np.nanmedian`, every op takes an explicit boolean validity mask and
-runs on fixed-shape (B, L) batches so XLA sees static shapes and the VPU
-processes whole minibatches at once.
+normalize, normalize_wrt), re-designed for batched devices: instead of
+NaN-padded ragged arrays and `np.nanmedian`, every op takes an explicit boolean
+validity mask and runs on fixed-shape (B, L) batches so XLA sees static shapes
+and processes whole minibatches at once.
 
 Median semantics match numpy: for an even count n the median is the average of
 the two middle order statistics; we get order statistics with a full sort along
@@ -128,8 +128,8 @@ def clip_outliers_prefix(
 ) -> jnp.ndarray:
     """clip_outliers where the valid lanes are the prefix [0, n_valid).
 
-    Dispatches the median+MAD to the fused ranged radix-select (Pallas VMEM
-    kernel on TPU) — the hot path of the fingerprint stage.
+    The median+MAD run through the fused ranged radix-select, the hot path
+    of the fingerprint stage.
     """
     from warpdemux_tpu.ops.select import range_median_mad
 
@@ -138,12 +138,6 @@ def clip_outliers_prefix(
         x,
         jnp.zeros((1, B), jnp.int32),
         n_valid.astype(jnp.int32)[None],
-        # pallas_ok=False was a round-2 workaround for a remote-toolchain
-        # compile stall mixing Pallas custom-calls with big XLA graphs;
-        # the fused demux step has since carried 4+ Pallas kernels next to
-        # sorts and while_loops without issue, and the VMEM kernel saves
-        # ~0.8 ms over the XLA bisection here (31 HBM passes -> 1)
-        pallas_ok=True,
     )
     lo = med[0] - thresh * mad[0]
     hi = med[0] + thresh * mad[0]

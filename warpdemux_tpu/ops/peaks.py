@@ -5,10 +5,8 @@ The reference selects changepoints with
 `num_events` highest-scoring peaks (reference: warpdemux/sig_proc.py:176-198).
 That ranking decides which events exist, so we replicate scipy's semantics in
 masked, batched JAX form — formulated entirely over (B, L) *position-space
-masks*: no compaction buffers, no scatters, no large sorts. (On this TPU
-toolchain, XLA compile time for big fused sort/scatter graphs is
-pathological; element-wise masks + reductions compile in seconds and keep the
-VPU busy.)
+masks*: no compaction buffers, no scatters, no large sorts; element-wise
+masks and reductions fuse and compile quickly.
 
 1. local maxima with plateau-midpoint handling (scipy `_local_maxima_1d`):
    a peak is a maximal run x[s..e] of equal values with x[s-1] < v,
@@ -68,9 +66,8 @@ def peak_mask_batch(
     pos = jax.lax.broadcasted_iota(jnp.int32, (B, L), 1)
 
     # Gather-free formulation: pack (change position, direction) into one
-    # int key and forward/backward-fill with lax.cummax. (On this TPU
-    # toolchain, scans combined with gathers in one XLA program compile
-    # pathologically slowly; packed cummax keys + element-wise math do not.
+    # int key and forward/backward-fill with lax.cummax (packed cummax keys
+    # + element-wise math instead of scans combined with gathers).
     # A bounded-plateau shifted-compare fast path behind a lax.cond was
     # measured SLOWER here: the conditional's operand materialization and
     # lost cross-boundary fusion cost more than the two cummax scans.)
@@ -125,7 +122,7 @@ def suppress_by_distance(
 
     which reproduces the sequential greedy exactly (induction over priority
     order). All neighborhood tests are static slices of a padded row, i.e.
-    pure fused element-wise ops on the VPU.
+    pure fused element-wise ops.
 
     Args:
       scores: (B, L) score curve.
@@ -138,18 +135,6 @@ def suppress_by_distance(
     """
     B, L = scores.shape
     W = max(int(max_distance), 1)
-    if (
-        jax.default_backend() == "tpu"
-        and scores.dtype == jnp.float32
-        and L >= 1024
-    ):
-        # VMEM-resident fixpoint (same recurrence; the XLA while_loop
-        # streams the carried masks through HBM every round)
-        from warpdemux_tpu.ops.peaks_pallas import suppress_by_distance_pallas
-
-        return suppress_by_distance_pallas(
-            scores, is_peak, distance, max_distance=W
-        )
     neg_inf = jnp.asarray(-jnp.inf, scores.dtype)
     d_col = distance.astype(jnp.int32)[:, None]
     false_row = jnp.zeros((B, L), bool)
@@ -217,9 +202,8 @@ def _topk_rev_indices(mrev, num_events):
     """Top-k indices into an already-reversed (masked) row.
 
     Segmented two-stage when the row is long: per-segment top-ks then one
-    top-k over the nseg*k candidates — a TPU top_k lowers to a full
-    bitonic row sort whose cost grows ~log^2(width), so several short
-    sorts beat one long one. Tie order is top_k's lowest-index-first at
+    top-k over the nseg*k candidates — a top_k that lowers to a full row
+    sort costs ~log^2(width), so several short sorts beat one long one. Tie order is top_k's lowest-index-first at
     both stages, which on a reversed row means the LATER global position
     (matching np.argsort tail selection).
     """
@@ -238,13 +222,7 @@ def _topk_rev_indices(mrev, num_events):
     cand_v = v1.reshape(B, nseg * num_events)
     cand_i = gidx.reshape(B, nseg * num_events)
     _, i2 = jax.lax.top_k(cand_v, num_events)  # (B, k) into candidates
-    # index fetch via the MXU one-hot gather (take_along_axis is a ~1 ms
-    # row gather on TPU); candidate indices < L << 2^24 are exact in f32
-    from warpdemux_tpu.ops.window_gather import take_rows_auto
-
-    return take_rows_auto(
-        cand_i.astype(jnp.float32), i2
-    ).astype(jnp.int32)
+    return jnp.take_along_axis(cand_i, i2.astype(jnp.int32), axis=1)
 
 
 def _select_top_peaks_segmented(scores, keep_mask, num_events):
@@ -274,15 +252,9 @@ def _select_top_peaks_chunkmax(scores, keep_mask, num_events, C=4):
     pos = jax.lax.broadcasted_iota(jnp.int32, (B, J), 1) * C + bestl
     # stage 2 on the reversed candidate row: lower index == later global
     # position, so the lowest-index tie break keeps argsort order; the
-    # segmented top-k keeps the candidate-row sort short (a direct top_k
-    # over the C=2 row of L/2 was the single most expensive op of the
-    # decision step at 1.85 ms)
+    # segmented top-k keeps the candidate-row sort short
     i2 = _topk_rev_indices(bestv[:, ::-1], num_events)
-    from warpdemux_tpu.ops.window_gather import take_rows_auto
-
-    return take_rows_auto(
-        pos[:, ::-1].astype(jnp.float32), i2
-    ).astype(jnp.int32)
+    return jnp.take_along_axis(pos[:, ::-1], i2, axis=1)
 
 
 def select_top_peaks(
@@ -299,9 +271,8 @@ def select_top_peaks(
     (sel_pos (B, num_events) int32 positions, ok (B,) = count >= num_events).
     Rows with ok=False contain garbage and must be masked by the caller.
 
-    Selection strategy on long rows (top_k lowers to a full stable
-    key-value row sort on TPU; this was the #2 op of the whole demux step
-    at L~6k):
+    Selection strategy on long rows (top_k can lower to a full stable
+    key-value row sort):
 
     * width-2 chunk-max (the production path): keep_mask comes out of
       distance suppression of LOCAL MAXIMA, and local maxima are never
@@ -313,8 +284,8 @@ def select_top_peaks(
       extracts). The per-chunk best kept peak is therefore an
       unconditionally lossless candidate set of L/2 values; one top_k
       over it replaces the full-row sort (~2x less sort work) with no
-      data-dependent fallback (the previous width-4 + collision
-      lax.cond staged its (B, L) operands every call, ~0.9 ms/step).
+      data-dependent fallback (a lax.cond fallback would stage its
+      (B, L) operands every call).
       Tie order is preserved: the within-chunk reduction prefers the
       later lane, and stage 2 runs on the reversed candidate row.
     * segmented path (`_select_top_peaks_segmented`, always exact for

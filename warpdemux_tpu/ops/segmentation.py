@@ -6,7 +6,7 @@ Capability parity with the reference's Cython segmentation kernel
 engineered as fixed-shape masked JAX ops:
 
 - `windowed_t_test`: the O(n*w) sliding loop becomes `w_max` shifted
-  accumulation passes over whole (B, L) minibatches on the VPU. Accumulation
+  accumulation passes over whole (B, L) minibatches. Accumulation
   order per window matches the reference's left-to-right loop, so in float64
   mode the scores agree with the reference to the last bit for the mean pass
   and to rounding of the same-ordered sum for the variance pass.
@@ -49,18 +49,6 @@ def windowed_t_test(
     dtype = x.dtype
     n_valid = n_valid.astype(jnp.int32)
     w = w.astype(jnp.int32)
-    if (
-        dtype == jnp.float32
-        and L >= 1024
-        and jax.default_backend() == "tpu"
-    ):
-        # VMEM-resident kernel: the identical element DAG (~1 ulp from
-        # XLA's context-dependent rewrites; see ops/ttest_pallas.py),
-        # one HBM round trip instead of ~70 fused streaming passes
-        from warpdemux_tpu.ops.ttest_pallas import windowed_t_test_pallas
-
-        scores = windowed_t_test_pallas(x, n_valid, w, w_max)
-        return scores, jnp.maximum(n_valid - 2 * w, 0)
     wf = w.astype(dtype)[:, None]
 
     pos = jax.lax.broadcasted_iota(jnp.int32, (B, L), 1)
@@ -87,8 +75,7 @@ def windowed_t_test(
 
     # Second window = first window shifted by w: m2[p] = m1[p+w],
     # v2[p] = v1[p+w]. The per-row dynamic shift is realized as a select
-    # over the (small) static shift range — TPU row-wise gathers are ~50x
-    # slower than rolls, so avoid take_along_axis entirely.
+    # over the (small) static shift range of rolls.
     def shift_by_w(arr):
         out = jnp.zeros((B, L), dtype)
         for k in range(1, w_max + 1):
@@ -129,16 +116,12 @@ def segment_means(
     nf = jnp.maximum(n_valid, 1).astype(x.dtype)
     center = jnp.sum(jnp.where(valid, x, 0.0), axis=1) / nf
     xc = jnp.where(valid, x - center[:, None], 0.0)
-    # Exclusive cumsum C[p] = sum(xc[:p]); segment sum = C[b1] - C[b0].
-    # ONE gather of all boundary positions (adjacent-diff after) through
-    # the MXU one-hot gather — two take_along_axis row gathers here were
-    # ~2.1 ms of the demux step on TPU.
-    from warpdemux_tpu.ops.window_gather import take_rows_auto
-
+    # Exclusive cumsum C[p] = sum(xc[:p]); segment sum = C[b1] - C[b0],
+    # from ONE gather of all boundary positions (adjacent-diff after).
     csum = jnp.cumsum(xc, axis=1)
     cpad = jnp.concatenate([jnp.zeros((B, 1), x.dtype), csum], axis=1)  # (B, L+1)
     b = jnp.clip(boundaries, 0, L)
-    g = take_rows_auto(cpad, b)  # (B, E+1)
+    g = jnp.take_along_axis(cpad, b, axis=1)  # (B, E+1)
     seg_sum = g[:, 1:] - g[:, :-1]
     seg_len = (b[:, 1:] - b[:, :-1]).astype(x.dtype)
     means = jnp.where(seg_len > 0, seg_sum / jnp.maximum(seg_len, 1.0), 0.0)

@@ -16,7 +16,7 @@ warpdemux/sig_proc.py:288-308). Semantics reproduced:
   through the recurrence (each cell carries the row-0 column where its path
   started), so the whole batch resolves without per-read backtracking.
 
-TPU formulation: anti-diagonal wavefront (r+c+1 steps) over (B, r+1) state
+Batched formulation: anti-diagonal wavefront (r+c+1 steps) over (B, r+1) state
 lanes carrying (cost, start) pairs.
 """
 

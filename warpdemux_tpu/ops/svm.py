@@ -8,7 +8,7 @@ SVC(kernel='precomputed', probability=True).predict_proba) as pure array ops:
   (models/dtw_svm.py:21-22)
 - one-vs-one decision values: a single (B, n_SV) x (n_SV, n_pairs) matmul with
   a coefficient matrix assembled at model-import time from libsvm dual
-  coefficients — this lands on the TPU MXU.
+  coefficients, at full float32 precision (Precision.HIGHEST: no TF32).
 - pairwise probabilities: libsvm's `sigmoid_predict` Platt calibration with
   the 1e-7 clamp.
 - multiclass coupling: libsvm's `multiclass_probability` (Wu & Lin method 2),
@@ -17,7 +17,7 @@ SVC(kernel='precomputed', probability=True).predict_proba) as pure array ops:
   match a sample-at-a-time solve.
 
 Everything here is jit-compatible with static shapes; float64 mode gives
-bitwise-faithful libsvm semantics for parity tests, float32 is the TPU path.
+bitwise-faithful libsvm semantics for parity tests, float32 is the device path.
 """
 
 from __future__ import annotations
@@ -77,6 +77,7 @@ def decision_values(K_sv: jnp.ndarray, params: SVMParams) -> jnp.ndarray:
         jnp.dot(
             K_sv,
             params.coef.astype(K_sv.dtype),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=K_sv.dtype,
         )
         + params.intercept.astype(K_sv.dtype)
@@ -110,14 +111,18 @@ def multiclass_probability(r: jnp.ndarray, k: int) -> jnp.ndarray:
     eye = jnp.eye(k, dtype=dtype)
     off = (-rT * r) * (1 - eye)[None]
     diag = jnp.sum((rT * rT) * (1 - eye)[None], axis=2)  # (B, k)
-    Q = off + jnp.einsum("bk,kj->bkj", diag, eye)
+    Q = off + jnp.einsum(
+        "bk,kj->bkj", diag, eye, precision=jax.lax.Precision.HIGHEST
+    )
 
     p0 = jnp.full((B, k), 1.0 / k, dtype)
 
     def compute_stats(p):
         # libsvm recomputes Qp/pQp from scratch at each loop head
         # "for numerical accuracy".
-        Qp = jnp.einsum("bkj,bj->bk", Q, p)
+        Qp = jnp.einsum(
+            "bkj,bj->bk", Q, p, precision=jax.lax.Precision.HIGHEST
+        )
         pQp = jnp.sum(p * Qp, axis=1)
         max_err = jnp.max(jnp.abs(Qp - pQp[:, None]), axis=1)
         return Qp, pQp, max_err

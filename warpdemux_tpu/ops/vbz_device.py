@@ -5,7 +5,7 @@ sample (0 -> 1 byte, 1 -> 2 bytes little-endian) and `data` holds the
 zig-zag-coded int16 deltas at variable width (io/vbz.py). The host must
 zstd-decompress anyway — but the *inner* layout (keys + data, typically
 ~11.5 KB per 10k-sample read vs 20 KB of raw int16) can cross the
-host->device link as-is and be decoded by the TPU:
+host->device link as-is and be decoded by the device:
 
     bits    = unpack(keys)                  (B, L)   shifts/masks
     offsets = exclusive_cumsum(bits + 1)    (B, L)   i32

@@ -1,89 +1,16 @@
 """Per-row windowed extraction: out[b, :] = x[b, start[b] : start[b] + A].
 
-XLA row-wise gathers (take_along_axis with per-row offsets) run ~50x slower
-than rolls on this TPU; this Pallas kernel does the same job as one dynamic
-vector slice per row — the natural hardware operation. Used for adapter
-extraction (ops/fingerprint.py) and the LLR refinement windows
-(detect/boundaries.py).
+Used for adapter extraction (ops/fingerprint.py) and the LLR refinement
+windows (detect/boundaries.py).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-def _shift_rows_kernel(rows_per_block, out_len, starts_ref, x_ref, o_ref):
-    # Mosaic requires dynamic lane offsets to be 128-aligned: load an
-    # aligned superset window, then rotate the sub-lane remainder in
-    # registers (dynamic pltpu.roll) and keep the first out_len lanes.
-    i = pl.program_id(0)
-    W = out_len + 128
-    for r in range(rows_per_block):
-        s = starts_ref[i * rows_per_block + r]
-        s_al = pl.multiple_of((s // 128) * 128, 128)
-        r_off = s - s_al  # in [0, 128)
-        seg = x_ref[pl.ds(r, 1), pl.ds(s_al, W)]  # (1, W)
-        rot = pltpu.roll(seg, (W - r_off) % W, axis=1)
-        o_ref[pl.ds(r, 1), :] = rot[:, :out_len]
-
-
-@functools.partial(jax.jit, static_argnames=("out_len", "interpret"))
-def shift_rows(
-    x: jnp.ndarray,
-    starts: jnp.ndarray,
-    out_len: int,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """out[b, j] = x[b, starts[b] + j] for j < out_len.
-
-    starts must satisfy 0 <= starts[b] <= L - out_len (callers clamp).
-    """
-    B, L = x.shape
-    Rb = 8
-    Bp = -(-B // Rb) * Rb
-    # Mosaic dynamic rotates need 128-aligned vector widths: round the
-    # window up and slice the tail off afterwards.
-    out_req = out_len
-    out_len = -(-out_len // 128) * 128
-    # the kernel loads an aligned (out_len + 128)-wide superset window
-    pad_r = out_len - out_req + 128
-    x = jnp.concatenate([x, jnp.zeros((B, pad_r), x.dtype)], axis=1)
-    L = L + pad_r
-    if Bp != B:
-        x = jnp.concatenate([x, jnp.zeros((Bp - B, L), x.dtype)], axis=0)
-    starts_c = jnp.clip(starts.astype(jnp.int32), 0, max(L - out_len - 128, 0))
-    if Bp != B:
-        starts_c = jnp.concatenate(
-            [starts_c, jnp.zeros(Bp - B, jnp.int32)], axis=0
-        )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(Bp // Rb,),
-        in_specs=[
-            pl.BlockSpec((Rb, L), lambda i, *_: (i, 0), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec(
-            (Rb, out_len), lambda i, *_: (i, 0), memory_space=pltpu.VMEM
-        ),
-    )
-    out = pl.pallas_call(
-        functools.partial(_shift_rows_kernel, Rb, out_len),
-        out_shape=jax.ShapeDtypeStruct((Bp, out_len), x.dtype),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(starts_c, x)
-    return out[:B, :out_req]
-
-
-def shift_rows_auto(x, starts, out_len):
-    """Pallas kernel on TPU, plain gather elsewhere."""
-    if jax.default_backend() == "tpu":
-        return shift_rows(x, starts, out_len)
+def shift_rows(x: jnp.ndarray, starts: jnp.ndarray, out_len: int) -> jnp.ndarray:
+    """out[b, j] = x[b, starts[b] + j] for j < out_len (indices clamped)."""
     B, L = x.shape
     idx = jnp.clip(
         starts.astype(jnp.int32)[:, None]
@@ -91,48 +18,4 @@ def shift_rows_auto(x, starts, out_len):
         0,
         L - 1,
     )
-    return jnp.take_along_axis(x, idx, axis=1)
-
-
-def take_rows_mxu(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Exact per-row gather out[b, k] = x[b, idx[b, k]] via MXU one-hots.
-
-    XLA lowers take_along_axis with per-row indices to a real row gather,
-    ~1 ms per call on this TPU even for tiny K (profiled: the three
-    take_along_axis calls in segment_means / select_top_peaks were 3.2 ms
-    of the demux step). This formulation decomposes the index into
-    (idx // 128, idx % 128) one-hots and contracts them against the
-    (B, H, 128)-blocked row — two small einsums on the MXU.
-
-    Exactness: each output is x[b, i] plus f32 additions of exact zeros
-    (one-hot weights are 0.0/1.0 and the contractions run at
-    Precision.HIGHEST), so the result is bit-identical to the gather for
-    finite inputs.
-    """
-    B, L = x.shape
-    K = idx.shape[1]
-    H = -(-L // 128)
-    xp = jnp.pad(x, ((0, 0), (0, H * 128 - L)))
-    x3 = xp.reshape(B, H, 128)
-    idx = jnp.clip(idx.astype(jnp.int32), 0, L - 1)
-    hi = idx // 128  # (B, K)
-    lo = idx % 128
-    oh_hi = (
-        hi[:, :, None] == jnp.arange(H, dtype=jnp.int32)[None, None, :]
-    ).astype(x.dtype)  # (B, K, H)
-    oh_lo = (
-        lo[:, :, None] == jnp.arange(128, dtype=jnp.int32)[None, None, :]
-    ).astype(x.dtype)  # (B, K, 128)
-    t = jnp.einsum(
-        "bkh,bhl->bkl", oh_hi, x3, precision=jax.lax.Precision.HIGHEST
-    )
-    return jnp.sum(t * oh_lo, axis=-1)
-
-
-def take_rows_auto(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """MXU one-hot gather on TPU, plain take_along_axis elsewhere."""
-    if jax.default_backend() == "tpu" and x.dtype in (
-        jnp.dtype("float32"),
-    ):
-        return take_rows_mxu(x, idx)
     return jnp.take_along_axis(x, idx, axis=1)

@@ -2,7 +2,7 @@
 
 The reference's only scaling axis is data parallelism over reads (a process
 pool, file_proc.py:1197-1245, "scales linearly with number of cores"); the
-TPU-native equivalent shards read minibatches across a device mesh:
+equivalent here shards read minibatches across a flat 1-D device mesh:
 
 - minibatch tensors (B, L) are sharded along the batch axis ("data"),
 - model arrays (support-vector fingerprints, dual coefficients, thresholds)
@@ -11,8 +11,8 @@ TPU-native equivalent shards read minibatches across a device mesh:
 - per-class read counters are reduced with a psum over the mesh — the analog
   of the reference's Manager-lock shared counters (file_proc.py:45-105),
 
-all expressed with pjit/NamedSharding + shard_map so XLA inserts the ICI
-collectives.
+all expressed with NamedSharding + shard_map so XLA inserts the
+collectives (NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def make_sharded_demux_step(model, spc, mesh: Mesh, axis_name: str = "data"):
     from warpdemux_tpu.detect.boundaries import detect_boundaries_with_fallback
     from warpdemux_tpu.ops.fingerprint import fingerprints_from_boundaries
     from warpdemux_tpu.ops import svm as svm_ops
-    from warpdemux_tpu.ops.dtw import dtw_distance_matrix
+    from warpdemux_tpu.ops.dtw_triton import dtw_distance_matrix_kernel
 
     dcfg, fcfg = spc.detect, spc.fingerprint
     cnn_params = {}
@@ -84,7 +84,7 @@ def make_sharded_demux_step(model, spc, mesh: Mesh, axis_name: str = "data"):
         fpts_safe = jnp.where(success[:, None], fpt.fpt, 0.0).astype(
             jnp.float32
         )
-        D = dtw_distance_matrix(fpts_safe, X_sv, window, penalty)
+        D = dtw_distance_matrix_kernel(fpts_safe, X_sv, window, penalty)
         K = svm_ops.pdist_kernel(D, gamma, pwr)
         p = svm_ops.SVMParams(coef, intercept, probA, probB, k)
         probs = svm_ops.predict_proba(K, p)

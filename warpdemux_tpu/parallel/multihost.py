@@ -1,22 +1,24 @@
 """Multi-host data parallelism: per-host input sharding + global stats.
 
 The reference's only scaling axis is reads-parallelism on one machine
-(SURVEY 2.2); the TPU-native equivalent for a pod slice is:
+(SURVEY 2.2). Across hosts, one process per host owns all of that host's
+cards:
 
 - each host reads a disjoint subset of the pod5 inputs (files are the
   natural shard unit; `shard_files` below mirrors the reference's
   bidx-sharded outputs with per-host shard naming),
 - every host runs the same fused demux step over its local minibatches
-  on its local chips (parallel/mesh.py handles intra-host chips),
+  on its local cards (parallel/mesh.py shards over a host's cards),
 - global per-class counters come back through a psum over the global mesh
   (class_counts_psum), the analog of the reference's Manager-lock shared
   counters,
 - outputs stay host-local (csv.gz/npz shards named with the host index),
   exactly like the reference's per-process bidx shards.
 
-`init_distributed()` wires jax.distributed from the standard TPU pod
-environment (or explicit coordinator args). Everything degrades to
-single-host when process_count == 1, which is how the unit tests run.
+`init_distributed()` wires jax.distributed from explicit coordinator
+arguments (address, process count, process index); nothing is read from
+the environment. Everything degrades to single-host when
+process_count == 1, which is how the unit tests run.
 """
 
 from __future__ import annotations
@@ -33,23 +35,19 @@ def init_distributed(
     """Initialize the JAX distributed runtime (no-op when single-host or
     already initialized). Returns (process_index, process_count).
 
-    coordinator_address="env" initializes from the standard TPU pod
-    environment (jax.distributed.initialize autodetect); None is an
-    explicit single-host no-op.
+    coordinator_address is "host:port" of process 0's coordinator; None
+    is an explicit single-host no-op.
     """
     # NOTE: do not touch jax.process_count() before initialize() — querying
     # it initializes the backends, after which distributed init is a no-op.
     if jax.distributed.is_initialized() or coordinator_address is None:
         return jax.process_index(), jax.process_count()
     try:
-        if coordinator_address == "env":
-            jax.distributed.initialize()
-        else:
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes,
-                process_id=process_id,
-            )
+        jax.distributed.initialize(
+            coordinator_address=coordinator_address,
+            num_processes=num_processes,
+            process_id=process_id,
+        )
     except RuntimeError:
         pass  # already initialized
     return jax.process_index(), jax.process_count()

@@ -8,7 +8,8 @@ import re
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
+
+from warpdemux_tpu.io.writers import read_csv_gz
 
 
 def _max_bidx(files: list[Path], pattern: str) -> int:
@@ -35,15 +36,15 @@ def scan_processed_reads(run_dir: str, result_type: str = "predictions"):
 
     if result_type == "predictions":
         for f in pred_files:
-            df = pd.read_csv(f)
-            col = "#read_id" if "#read_id" in df.columns else "read_id"
-            processed.update(df[col])
+            df = read_csv_gz(f)
+            col = "#read_id" if "#read_id" in df else "read_id"
+            processed.update(df.get(col, []))
     else:
         for f in fpt_files:
             with np.load(f, allow_pickle=True) as z:
                 processed.update(str(r) for r in z["read_ids"])
     for f in fail_files:
-        processed.update(pd.read_csv(f, usecols=["read_id"])["read_id"])
+        processed.update(read_csv_gz(f).get("read_id", []))
 
     bidx_pass = (
         max(

@@ -1,7 +1,7 @@
 """Offline batch pipeline orchestration.
 
 Mirrors the reference's run_demux (warpdemux/file_proc.py:1011-1300) with a
-TPU-shaped execution model: a producer thread preloads fixed-shape pod5
+device-shaped execution model: a producer thread preloads fixed-shape pod5
 minibatches into a bounded queue (I/O-compute overlap + backpressure, like
 file_proc.py:333-354), the main loop issues one fused device step per
 minibatch (instead of a process pool), and writer logic re-chunks results
@@ -20,41 +20,41 @@ from dataclasses import dataclass, field
 
 import jax
 import numpy as np
-import pandas as pd
 
 from warpdemux_tpu.config.config import Config
 from warpdemux_tpu.detect.containers import fail_code_to_reason
 from warpdemux_tpu.io.pod5 import yield_vbz_batches
 from warpdemux_tpu.io import writers
+from warpdemux_tpu.io.writers import Frame, frame_concat, frame_len, frame_take
 from warpdemux_tpu.pipeline.step import PackedStepOutput, make_demux_step
 
 
 class _ShardAccumulator:
-    """Accumulates DataFrames and flushes batch_size_output-row shards."""
+    """Accumulates frames and flushes batch_size_output-row shards."""
 
     def __init__(self, flush_fn, rows_per_shard: int, bidx0: int = 0):
         self.flush_fn = flush_fn
         self.rows_per_shard = rows_per_shard
         self.bidx = bidx0
-        self.frames: list[pd.DataFrame] = []
+        self.frames: list[Frame] = []
         self.count = 0
 
-    def add(self, df: pd.DataFrame):
-        if df is None or not len(df):
+    def add(self, df: Frame | None):
+        if df is None or not frame_len(df):
             return
         self.frames.append(df)
-        self.count += len(df)
+        self.count += frame_len(df)
         while self.count >= self.rows_per_shard:
-            big = pd.concat(self.frames, ignore_index=True)
-            self.flush_fn(big.iloc[: self.rows_per_shard], self.bidx)
-            rest = big.iloc[self.rows_per_shard :]
-            self.frames = [rest] if len(rest) else []
-            self.count = len(rest)
+            big = frame_concat(self.frames)
+            self.flush_fn(frame_take(big, slice(0, self.rows_per_shard)), self.bidx)
+            rest = frame_take(big, slice(self.rows_per_shard, None))
+            self.count = frame_len(rest)
+            self.frames = [rest] if self.count else []
             self.bidx += 1
 
     def close(self):
         if self.count:
-            big = pd.concat(self.frames, ignore_index=True)
+            big = frame_concat(self.frames)
             self.flush_fn(big, self.bidx)
             self.bidx += 1
             self.frames, self.count = [], 0
@@ -73,68 +73,37 @@ class RunStats:
 
 
 class _Progress:
-    """Total / failed / pass progress display (the reference's three tqdm
-    bars with an asynchronously-computed total, file_proc.py:783-964):
-    the expected total is counted in a background thread so the run starts
-    immediately; bars update as the main loop reports."""
+    """Total / failed / pass progress (the reference's three tqdm bars with
+    an asynchronously-computed total, file_proc.py:783-964): the expected
+    total is counted in a background thread so the run starts immediately,
+    and a log line reports the counters on a fixed cadence."""
 
-    LOG_EVERY_S = 15.0  # headless (non-TTY) progress-log cadence
+    LOG_EVERY_S = 15.0
 
     def __init__(self, stats: RunStats, total_fn, label: str):
         self.stats = stats
         self.total = None
-        self._bars = None
         self._label = label
         self._last_log = time.monotonic()
-        self._stop = threading.Event()
         threading.Thread(
             target=self._count_total, args=(total_fn,), daemon=True
         ).start()
-        try:
-            import sys
-
-            from tqdm import tqdm
-
-            if sys.stderr.isatty():
-                self._bars = (
-                    tqdm(desc="total", unit="reads", position=0),
-                    tqdm(desc="failed", unit="reads", position=1),
-                    tqdm(desc=label, unit="reads", position=2),
-                )
-        except ImportError:
-            pass
 
     def _count_total(self, total_fn):
         try:
             self.total = total_fn()
-            if self._bars:
-                self._bars[0].total = self.total
         except Exception:
             pass
 
     def update(self):
         s = self.stats
-        if self._bars:
-            b_tot, b_fail, b_pass = self._bars
-            b_tot.n, b_fail.n, b_pass.n = s.total, s.failed, s.passed
-            for b in self._bars:
-                b.refresh()
-        elif time.monotonic() - self._last_log >= self.LOG_EVERY_S:
-            # headless runs (the normal TPU case) get a log line on a time
-            # cadence, mirroring the reference's 1 s tqdm refresh
-            # (file_proc.py:783-880) at a log-friendly interval
+        if time.monotonic() - self._last_log >= self.LOG_EVERY_S:
             self._last_log = time.monotonic()
             tot = f"/{self.total}" if self.total else ""
             logging.info(
                 "progress: %d%s reads (%d %s, %d failed)",
                 s.total, tot, s.passed, self._label, s.failed,
             )
-
-    def close(self):
-        self._stop.set()
-        if self._bars:
-            for b in self._bars:
-                b.close()
 
 
 def select_outputs_mode(config: Config) -> str:
@@ -147,6 +116,20 @@ def select_outputs_mode(config: Config) -> str:
     ):
         return "decision"
     return "full"
+
+
+def resolve_device_count(requested: int | None) -> int:
+    """Devices to shard over: 0/None means all; asking for more devices than
+    exist is an error, never a silent shrink."""
+    avail = len(jax.devices())
+    if requested in (0, None):
+        return avail
+    if requested > avail:
+        raise ValueError(
+            f"--devices {requested} requested but only {avail} "
+            f"{jax.devices()[0].platform} device(s) are visible"
+        )
+    return int(requested)
 
 
 def run_demux(config: Config, model=None) -> RunStats:
@@ -168,8 +151,7 @@ def run_demux(config: Config, model=None) -> RunStats:
     batch_sharding = None
     n_dev = config.batch.devices
     if n_dev != 1:
-        avail = len(jax.devices())
-        n_dev = avail if n_dev in (0, None) else min(n_dev, avail)
+        n_dev = resolve_device_count(n_dev)
         if n_dev > 1:
             from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -183,7 +165,7 @@ def run_demux(config: Config, model=None) -> RunStats:
     # predictions-only runs use the decision lane: only pred/conf/probs/fail
     # cross the device->host link (~13+4k B/read instead of ~370) and XLA
     # strips the unused boundary/fingerprint outputs from the program — the
-    # TPU analog of the reference's predict-only worker that skips
+    # analog of the reference's predict-only worker that skips
     # boundary/fpt output entirely (file_proc.py:457-497).
     outputs_mode = select_outputs_mode(config)
 
@@ -392,14 +374,12 @@ def run_demux(config: Config, model=None) -> RunStats:
         if not success.all():
             ids = np.asarray(read_ids)
             fail_acc.add(
-                pd.DataFrame(
-                    {
-                        "read_id": list(ids[~success]),
-                        "fail_reason": fail_code_to_reason(
-                            fail_code[~success]
-                        ),
-                    }
-                )
+                {
+                    "read_id": ids[~success],
+                    "fail_reason": np.asarray(
+                        fail_code_to_reason(fail_code[~success]), object
+                    ),
+                }
             )
         if success.any():
             pred = np.asarray(res.pred)[:n][success]
@@ -409,7 +389,7 @@ def run_demux(config: Config, model=None) -> RunStats:
                 np.asarray(read_ids)[success], pred, conf, probs
             )
             pred_acc.add(df)
-            stats.predicted += len(df)
+            stats.predicted += frame_len(df)
             acc_classes(pred)
         progress.update()
 
@@ -452,11 +432,16 @@ def run_demux(config: Config, model=None) -> RunStats:
             det_df["seg_cons_query_start"] = np.asarray(cons.seg_query_start)[:n]
             det_df["seg_cons_query_end"] = np.asarray(cons.seg_query_end)[:n]
             det_df["sig_barcode_start"] = np.asarray(cons.sig_barcode_start)[:n]
-        det_df["fail_reason"] = fail_code_to_reason(fail_code)
+        det_df["fail_reason"] = np.asarray(fail_code_to_reason(fail_code), object)
 
         if config.output.save_boundaries:
-            bound_acc.add(det_df[success].drop(columns=["fail_reason"]))
-        fail_acc.add(det_df[~success])
+            bound_acc.add(
+                frame_take(
+                    {k: v for k, v in det_df.items() if k != "fail_reason"},
+                    success,
+                )
+            )
+        fail_acc.add(frame_take(det_df, ~success))
 
         if config.output.save_fpts and success.any():
             fpt_rows.append(
@@ -477,14 +462,14 @@ def run_demux(config: Config, model=None) -> RunStats:
                 np.asarray(read_ids)[success], pred, conf, probs
             )
             pred_acc.add(df)
-            stats.predicted += len(df)
+            stats.predicted += frame_len(df)
             acc_classes(pred)
         progress.update()
 
     # The main loop only dispatches device steps; a postprocessing thread
-    # fetches results and does all pandas/csv work. With `maxsize` results
-    # in flight the chip computes minibatch N+1 while N's outputs cross the
-    # link and the host re-chunks DataFrames (the reference overlaps the
+    # fetches results and does all csv work. With `maxsize` results in
+    # flight the device computes minibatch N+1 while N's outputs are
+    # fetched and the host re-chunks the tables (the reference overlaps the
     # same way with saver threads, file_proc.py:1100-1153).
     results: queue.Queue = queue.Queue(maxsize=3)
 
@@ -550,7 +535,6 @@ def run_demux(config: Config, model=None) -> RunStats:
     results.put(None)
     pp_thread.join()
 
-    progress.close()
     pred_acc.close()
     fail_acc.close()
     bound_acc.close()
@@ -638,18 +622,17 @@ def run_predict_from_fpts(config: Config, model=None) -> RunStats:
             )
             df = model.predictions_to_df(ids[finite], pred, conf, probs)
             pred_acc.add(df)
-            stats.predicted += len(df)
+            stats.predicted += frame_len(df)
         if not finite.all():
             # every read lands in predictions or failed_reads — never
             # silently dropped (reference routes every read one way or the
             # other, file_proc.py:457-497)
+            n_bad = int((~finite).sum())
             fail_acc.add(
-                pd.DataFrame(
-                    {
-                        "read_id": list(ids[~finite]),
-                        "fail_reason": "non-finite fingerprint",
-                    }
-                )
+                {
+                    "read_id": ids[~finite],
+                    "fail_reason": np.full(n_bad, "non-finite fingerprint", object),
+                }
             )
             stats.failed += int((~finite).sum())
         stats.total += len(ids)

@@ -1,9 +1,8 @@
 """Packed step-output layout: ONE schema table both sides read.
 
 The demux step returns every per-read scalar column stacked into two
-(B, C) buffers (one int32, one float32) because remote-attached devices
-pay a per-buffer round trip on every dispatch/fetch (see
-pipeline/step.py PackedStepOutput). Round 2 hand-indexed those column
+(B, C) buffers (one int32, one float32): fewer, larger device-to-host
+transfers (see pipeline/step.py PackedStepOutput). Round 2 hand-indexed those column
 offsets in two places (pack and unpack), which silently corrupts every
 downstream field the moment a column is added. This module is the single
 definition: `pack()` and `unpack()` iterate the same ordered spec, so the
